@@ -10,16 +10,24 @@ needs no network. It
    mid-size cases (40k-splat garden, interleaved row ownership, capacity
    overflow, early stop) and at the shapes the full-size render gives it,
    where it also times kernel, plain version, and the nearest single library
-   call, and computes the roofline bound from that run's inputs;
+   call, and computes the roofline bound from that run's inputs; there it
+   also times the backward's per-splat tail beside the scatter
+   (index_add_) that it replaces;
 4. renders the 1.5M-splat SH-degree-3 garden stand-in at 1920x1080 (exact
    profile, calibrated capacity) through splatapult_tpu_torch.render.render a
    few times with the launch counters zeroed just before, and checks that
-   every kernel was launched once per render;
-5. checks the output: finite, the expected shape, agreeing with the
+   every forward kernel was launched once per render and the backward never;
+5. trains: the same scene with seeded noise on its colours, opacities and
+   positions is fitted to two 1920x1080 renders of the true scene through
+   splatapult_tpu_torch.train.fit_scene (a few steps with a per-step callback,
+   a few in the chunked loop), launch counters zeroed just before; losses
+   must be finite and fall, every parameter's gradient finite and non-zero,
+   and each of the three kernels launched views x steps times;
+6. checks the output: finite, the expected shape, agreeing with the
    JAX-made golden images under tests/golden/ on the two small scenes, the
    GPU render agreeing with the port's CPU render, and exactly zero alpha for
    a camera looking away;
-6. drives the CLI (synth + render to PNG) in a subprocess.
+7. drives the CLI (synth, render to PNG, fit) in subprocesses.
 
 Each phase prints one JSON line; any failure raises and the exit code is not 0.
 The last line is {"ok": true, "device": {...}}.
@@ -29,7 +37,16 @@ version: max abs <= 1e-4, except that at most a 1e-4 fraction of values may
 differ by up to 5e-3 — the 1/256 alpha discard is a hard threshold on the
 exponent, and float rounding (fused multiply-adds in the kernel, cumprod
 versus a running product in the plain version) can flip it for single
-(instance, pixel) pairs. Goldens: atol 3e-3 (they are stored as float16).
+(instance, pixel) pairs. composite_bwd against its plain version: each of the
+nine gradient columns is scaled by the plain version's largest magnitude in
+that column; on that scale max abs <= 2e-4 (the kernel sums pixels by warp
+shuffles and warps in fixed order, the plain version by cumsum and matrix
+products: rounding and order differ), except that at most a 1e-4 fraction of
+values may differ by up to 2e-2: the same threshold flips apply, and one flip
+removes a (pixel, instance) term of weight 1/256 from all nine columns of that
+instance and rescales what lies behind it in that pixel. The cotangent is
+standard normal from a seeded generator, so rows 0-4 are all non-zero.
+Goldens: atol 3e-3 (they are stored as float16).
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_SPLATS, FULL_W, FULL_H = 1_500_000, 1920, 1080
 N_RENDERS = 5
+TRAIN_VIEWS, TRAIN_STEPS_CALLBACK, TRAIN_STEPS_CHUNKED = 2, 4, 4
 
 
 def emit(obj) -> None:
@@ -74,6 +92,18 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def event_ms_once(fn):
+    """One call, no warm-up -> (milliseconds by CUDA events, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), result
+
+
 def composite_close(got, want, what: str) -> float:
     """The composite tolerance of the module docstring -> max abs error."""
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
@@ -85,6 +115,26 @@ def composite_close(got, want, what: str) -> float:
         raise AssertionError(
             f"{what}: max abs err {max_err:.3e}, fraction over 1e-4 = {frac:.3e}")
     return max_err
+
+
+def grad_cols_close(got, want, what: str) -> float:
+    """The composite_bwd tolerance of the module docstring -> max abs error
+    on the per-column scale."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or non-finite values")
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    err = (got - want).abs() / scale
+    max_err = float(err.max())
+    frac = float((err > 2e-4).float().mean())
+    if max_err > 2e-2 or frac > 1e-4:
+        raise AssertionError(
+            f"{what}: max scaled err {max_err:.3e}, fraction over 2e-4 = {frac:.3e}")
+    return max_err
+
+
+def seeded_cotangent(out):
+    gen = torch.Generator(device=out.device).manual_seed(1)
+    return torch.randn(out.shape, generator=gen, device=out.device)
 
 
 def main() -> int:
@@ -100,6 +150,7 @@ def main() -> int:
     from splatapult_tpu_torch.kernels import _build
     from splatapult_tpu_torch.core import transforms as T
     from splatapult_tpu_torch.ops import binning as B, composite as C, tiled
+    from splatapult_tpu_torch import train
 
     # the package re-exports the render() function under the module's name
     R = importlib.import_module("splatapult_tpu_torch.render")
@@ -126,7 +177,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     def kernel_inputs(scene, cam, cfg, row_stride=1, row_offset=None):
-        """The tensors the two wrappers receive on the render path."""
+        """The tensors the kernels' wrappers receive on the render path."""
         d = R.prepare_splats(scene, cam, cfg)
         grid = tiled._grid_from_config(cfg, scene.num_gaussians, row_stride)
         table = B.expand_table(d["mean2d"], d["extent"], grid, d["depth"], row_offset)
@@ -150,9 +201,14 @@ def main() -> int:
         ref = C.composite_fwd_plain(inst, start, nblk, grid)
         torch.cuda.synchronize()
         err = composite_close(out, ref, f"composite_fwd ({what})")
+        dout = seeded_cotangent(out)
+        d_inst = C.composite_bwd(inst, start, nblk, out, dout, grid)
+        d_ref = C.composite_bwd_plain(inst, start, nblk, out, dout, grid)
+        torch.cuda.synchronize()
+        b_err = grad_cols_close(d_inst, d_ref, f"composite_bwd ({what})")
         return {"case": what, "emax": grid.emax, "mcap": grid.mcap,
                 "culled": int(bins["num_culled_instances"]),
-                "composite_max_abs_err": err}
+                "composite_max_abs_err": err, "composite_bwd_max_scaled_err": b_err}
 
     # ---- phase 3a: kernels against their plain versions, mid-size cases
     mid = make_garden_scene(40_000, seed=0, device=dev)
@@ -205,10 +261,10 @@ def main() -> int:
         frame_ms.append(start_ev.elapsed_time(end_ev))
     launches = dict(kernels.LAUNCH_COUNTS)
     peak_bytes = torch.cuda.max_memory_allocated()
-    for name, count in launches.items():
-        if count != N_RENDERS:
-            raise AssertionError(
-                f"kernel {name} launched {count} times in {N_RENDERS} renders")
+    want_launches = {"expand_fill": N_RENDERS, "composite_fwd": N_RENDERS, "composite_bwd": 0}
+    if launches != want_launches:
+        raise AssertionError(
+            f"kernel launches in {N_RENDERS} renders: {launches}, expected {want_launches}")
     if img.shape != (FULL_H, FULL_W, 4) or not bool(torch.isfinite(img).all()):
         raise AssertionError("render_full: wrong shape or non-finite values")
     alpha_max = float(img[..., 3].max())
@@ -235,6 +291,14 @@ def main() -> int:
     torch.cuda.synchronize()
     c_err = composite_close(out, ref, "composite_fwd at full size")
     del ref
+    dout = seeded_cotangent(out)
+    d_inst = C.composite_bwd(inst, tstart, nblk, out, dout, grid)
+    b_plain, d_ref = event_ms_once(
+        lambda: C.composite_bwd_plain(inst, tstart, nblk, out, dout, grid))
+    b_err = grad_cols_close(d_inst, d_ref, "composite_bwd at full size")
+    del d_ref
+    if not torch.equal(d_inst, C.composite_bwd(inst, tstart, nblk, out, dout, grid)):
+        raise AssertionError("composite_bwd differs between two runs on the same inputs")
 
     slots = torch.arange(grid.emax, dtype=torch.int32, device=dev)
     e_ms = event_ms(lambda: B.expand_fill(*e_args), 20)
@@ -242,6 +306,33 @@ def main() -> int:
     e_lib = event_ms(lambda: torch.searchsorted(table["ends"], slots, right=True), 20)
     c_ms = event_ms(lambda: C.composite_fwd(inst, tstart, nblk, grid), 10)
     c_plain = event_ms(lambda: C.composite_fwd_plain(inst, tstart, nblk, grid), 1, warmup=0)
+    b_ms = event_ms(lambda: C.composite_bwd(inst, tstart, nblk, out, dout, grid), 10)
+
+    # the backward's tail on the same columns, beside the scatter it replaces
+    # (index_add_ sums with atomics: faster or not, its result changes from
+    # run to run in the last bits, the tail's does not)
+    tail_args = (d_inst, bins["inst_splat"], bins["seg_offs"], bins["seg_cnt"], grid)
+    splat_ids = bins["inst_splat"].long()
+
+    def scatter(dtype=torch.float32):
+        return torch.zeros((n + 1, C.NUM_GRAD_COLS), dtype=dtype, device=dev).index_add_(
+            0, splat_ids, d_inst.t().to(dtype))
+
+    tail_ms = event_ms(lambda: C.per_splat_sums(*tail_args), 10)
+    scatter_ms = event_ms(scatter, 10)
+    d_feats = C.per_splat_sums(*tail_args)
+    if not torch.equal(d_feats, C.per_splat_sums(*tail_args)):
+        raise AssertionError("per_splat_sums differs between two runs on the same inputs")
+    exact = scatter(torch.float64)
+    col_scale = exact.abs().amax(dim=0).clamp_min(1e-30)
+    tail_err = float(((d_feats[:, :C.NUM_GRAD_COLS].double() - exact).abs() / col_scale).max())
+    scatter_err = float(((scatter().double() - exact).abs() / col_scale).max())
+    # float32 prefix sums over 2.6M slots: the rounding is relative to the
+    # running total, so it is stated on the per-column scale
+    if not tail_err <= 1e-4:
+        raise AssertionError(f"per_splat_sums: max scaled err {tail_err:.3e} against a "
+                             f"float64 scatter")
+    del exact, d_feats
 
     # bounds from this run's inputs: each input read once, each output written
     # once; operations counted on the slots this view really fills
@@ -254,6 +345,15 @@ def main() -> int:
     c_flop = 2 * 15 * live_slots * p  # ~15 multiply-adds per (slot, pixel), exp included
     c_bound_b = c_bytes / HBM_BYTES_PER_S * 1e3
     c_bound_o = c_flop / FP32_FLOP_PER_S * 1e3
+    # backward: per slot a 64 B row read and nine floats written, per pixel
+    # five rows each of the forward's output and its cotangent read; per
+    # (slot, pixel) the forward's replay (~15 multiply-adds, exp included) and
+    # about 25 more: cdot 3, eff and S 2, dw with its division 6, dqh and T 2,
+    # the nine products 9, and the pixel sums' adds
+    b_bytes = (64 + 4 * C.NUM_GRAD_COLS) * live_slots + 40 * grid.num_tiles * p + 12 * grid.num_tiles
+    b_flop = 2 * 40 * live_slots * p
+    b_bound_b = b_bytes / HBM_BYTES_PER_S * 1e3
+    b_bound_o = b_flop / FP32_FLOP_PER_S * 1e3
     kernel_rows = [
         {"name": "expand_fill", "route": "cuda",
          "source": "splatapult_tpu_torch/kernels/csrc/expand.cu",
@@ -275,6 +375,18 @@ def main() -> int:
          "shape": {"mcap": grid.mcap, "live_slots": live_slots,
                    "tiles": grid.num_tiles, "tile_pixels": p,
                    "max_blocks_in_a_tile": int(nblk.max())}},
+        {"name": "composite_bwd", "route": "cuda",
+         "source": "splatapult_tpu_torch/kernels/csrc/composite_bwd.cu",
+         "replaces": "splatapult_tpu/ops/composite.py:581",
+         "launches": None,  # filled in by the train_full phase
+         "max_abs_err": b_err, "max_abs_err_scale": "each column over its largest magnitude",
+         "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": max(b_bound_b, b_bound_o),
+         "bound_by": "bytes" if b_bound_b >= b_bound_o else "operations",
+         "library_ms": None,
+         "shape": {"mcap": grid.mcap, "live_slots": live_slots,
+                   "tiles": grid.num_tiles, "tile_pixels": p,
+                   "max_blocks_in_a_tile": int(nblk.max())}},
     ]
 
     emit({"phase": "render_full", "splats": n, "width": FULL_W, "height": FULL_H,
@@ -282,13 +394,92 @@ def main() -> int:
           "emax": grid.emax, "mcap": grid.mcap, "instances": total,
           "ms_per_frame_median": statistics.median(frame_ms), "ms_per_frame_all": frame_ms,
           "pixels_per_s": FULL_W * FULL_H / (statistics.median(frame_ms) * 1e-3),
-          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms},
+          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms, "composite_bwd": b_ms},
+          "tail_ms": {"per_splat_sums": tail_ms, "index_add_": scatter_ms},
+          "tail_max_scaled_err_vs_float64": {"per_splat_sums": tail_err,
+                                             "index_add_": scatter_err},
           "peak_memory_bytes": peak_bytes, "alpha_max": alpha_max,
           "num_culled_instances": culled, "launches": launches,
           "scene_and_calibration_seconds": setup_s,
           "device": kind, "nvidia_smi_name_power_limit": smi})
 
-    # ---- phase 5: output checks on small inputs
+    # ---- phase 5: training at full size through fit_scene
+    del inst, out, dout, d_inst, table, bins, got, want, tail_args, splat_ids
+    views = garden_cameras(TRAIN_VIEWS, width=FULL_W, height_px=FULL_H, device=dev)
+    view_list = [R.Camera(cam_to_world=m, proj=q)
+                 for m, q in zip(views.cam_to_world, views.proj)]
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def noisy(t, sigma):
+        return t + sigma * torch.randn(t.shape, generator=gen, device=dev)
+
+    start = dataclasses.replace(scene, sh=noisy(scene.sh, 0.1),
+                                opacities=noisy(scene.opacities, 0.3),
+                                means=noisy(scene.means, 0.005))
+    train_cfg = R.calibrate_config(start, views, dataclasses.replace(cfg, forward_only=False))
+    targets = torch.stack([R.render(scene, v, train_cfg) for v in view_list])
+
+    def culled_instances(sc):
+        with torch.no_grad():
+            return sum(int(tiled.composite_tiled(R.prepare_splats(sc, v, train_cfg), train_cfg,
+                                                 return_aux=True)[1]["num_culled_instances"])
+                       for v in view_list)
+
+    train_culled = culled_instances(start)
+    step_events = [torch.cuda.Event(enable_timing=True)]
+    first_grads = {}
+
+    def on_step(step, params, loss):
+        step_events.append(torch.cuda.Event(enable_timing=True))
+        step_events[-1].record()
+        if step == 0:
+            for f in dataclasses.fields(params):
+                g = getattr(params, f.name).grad
+                first_grads[f.name] = {"finite": bool(torch.isfinite(g).all()),
+                                       "abs_max": float(g.abs().max())}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_events[0].record()
+    fitted, losses_cb = train.fit_scene(start, views, targets, train_cfg,
+                                        steps=TRAIN_STEPS_CALLBACK, callback=on_step)
+    chunk_ms, (fitted, losses_chunk) = event_ms_once(
+        lambda: train.fit_scene(fitted, views, targets, train_cfg, steps=TRAIN_STEPS_CHUNKED))
+    train_launches = dict(kernels.LAUNCH_COUNTS)
+    train_peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(step_events[:-1], step_events[1:])]
+    n_launch = TRAIN_VIEWS * (TRAIN_STEPS_CALLBACK + TRAIN_STEPS_CHUNKED)
+    if any(c != n_launch for c in train_launches.values()):
+        raise AssertionError(f"train_full: kernel launches {train_launches}, expected "
+                             f"{n_launch} each (views x steps)")
+    for losses in (losses_cb, losses_chunk):
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train_full: losses not finite or not falling: {losses}")
+    for name, st in first_grads.items():
+        if not st["finite"] or not st["abs_max"] > 0.0:
+            raise AssertionError(f"train_full: gradient of {name} after the first step: {st}")
+    if len(first_grads) != 5:
+        raise AssertionError(f"train_full: gradients seen for {sorted(first_grads)}")
+    train_culled += culled_instances(fitted)
+    if train_culled != 0:
+        raise AssertionError(f"train_full: {train_culled} culled instances")
+    for row in kernel_rows:
+        row["launches_by_path"] = {"render_full": launches[row["name"]],
+                                   "train_full": train_launches[row["name"]]}
+    kernel_rows[2]["launches"] = train_launches["composite_bwd"]
+    emit({"phase": "train_full", "splats": n, "views": TRAIN_VIEWS, "width": FULL_W,
+          "height": FULL_H, "profile": R.profile_name(train_cfg),
+          "max_instance_mult": train_cfg.max_instance_mult,
+          "losses_callback_loop": losses_cb, "losses_chunked_loop": losses_chunk,
+          "ms_per_step_median": statistics.median(step_ms), "ms_per_step_all": step_ms,
+          "ms_per_step_chunked_loop": chunk_ms / TRAIN_STEPS_CHUNKED,
+          "first_step_grads": first_grads, "launches": train_launches,
+          "peak_memory_bytes": train_peak, "num_culled_instances": train_culled,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+    del start, fitted, targets
+
+    # ---- phase 6: output checks on small inputs
     away = R.Camera.from_fov(
         # outside the scene's 25 m background shell, facing outward
         T.look_at(eye=[100.0, 1.6, 0.0], target=[200.0, 1.6, 0.0], up=[0, 1, 0]),
@@ -297,7 +488,7 @@ def main() -> int:
     torch.cuda.synchronize()
     if float(img_away[..., 3].abs().max()) != 0.0:
         raise AssertionError("render_away: alpha is not exactly 0")
-    del scene, inst, out, img_away
+    del scene, img_away
 
     def golden(name):
         return np.load(os.path.join(ROOT, "tests", "golden", name + ".npy")).astype(np.float32)
@@ -322,24 +513,52 @@ def main() -> int:
     emit({"phase": "output_checks", "render_away_alpha_max": 0.0,
           "golden_max_abs_err": gold_err, "gpu_vs_cpu_render_max_abs_err": cpu_err})
 
-    # ---- phase 6: the CLI in a subprocess
+    # ---- phase 7: the CLI in subprocesses
+    from splatapult_tpu_torch.cli import _orbit_rig
+    from splatapult_tpu_torch.io.gaussians import load_gaussian_ply, save_gaussian_ply
+    from splatapult_tpu_torch.utils.image import load_png
+
     with tempfile.TemporaryDirectory() as tmp:
         ply, png = os.path.join(tmp, "garden.ply"), os.path.join(tmp, "garden.png")
         cli = [sys.executable, "-m", "splatapult_tpu_torch.cli"]
-        for cmd in (
-            cli + ["synth", "garden", "--splats", "20000", "-o", ply],
-            cli + ["render", ply, "-o", png, "--width", "640", "--height", "384",
-                   "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"],
-        ):
-            subprocess.run(cmd, cwd=ROOT, check=True, timeout=600,
-                           stdout=subprocess.DEVNULL)
+        size = ["--width", "640", "--height", "384"]
+
+        def run_cli(args):
+            return subprocess.run(cli + args, cwd=ROOT, check=True, timeout=600,
+                                  stdout=subprocess.PIPE, text=True).stdout
+
+        run_cli(["synth", "garden", "--splats", "20000", "-o", ply])
+        run_cli(["render", ply, "-o", png, *size,
+                 "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"])
         png_bytes = os.path.getsize(png)
         if png_bytes <= 0:
             raise AssertionError("cli render wrote an empty PNG")
-        from splatapult_tpu_torch.utils.image import load_png
         if load_png(png).shape != (384, 640, 3):
             raise AssertionError("cli render wrote a PNG of the wrong size")
-    emit({"phase": "cli", "png_bytes": png_bytes})
+        # fit: two orbit views of the true scene rendered to PNG with `render`,
+        # then a copy with dimmed colours fitted back for a few steps
+        small = load_gaussian_ply(ply, device="cpu")
+        rig = _orbit_rig(small, 2, 640, 384, fovy=np.deg2rad(45.0), device="cpu")
+        center = [repr(float(x)) for x in small.means.numpy().mean(0)]
+        for i in range(2):
+            eye = [repr(float(x)) for x in rig.cam_to_world[i, :3, 3]]
+            run_cli(["render", ply, "-o", os.path.join(tmp, f"target{i}.png"), *size,
+                     "--eye", *eye, "--target", *center])
+        dim_ply, fitted_ply = os.path.join(tmp, "dim.ply"), os.path.join(tmp, "fitted.ply")
+        save_gaussian_ply(dim_ply, dataclasses.replace(small, sh=small.sh * 0.8))
+        fit_line = json.loads(run_cli(
+            ["fit", dim_ply, "--targets", os.path.join(tmp, "target*.png"), "-o", fitted_ply,
+             "--steps", "5"]).strip().splitlines()[-1])
+        if (fit_line["steps"], fit_line["views"], fit_line["splats"]) != (5, 2, 20000):
+            raise AssertionError(f"cli fit: {fit_line}")
+        if not (math.isfinite(fit_line["loss_last"])
+                and fit_line["loss_last"] < fit_line["loss_first"]):
+            raise AssertionError(f"cli fit: loss did not fall: {fit_line}")
+        if load_gaussian_ply(fitted_ply, device="cpu").num_gaussians != 20000:
+            raise AssertionError("cli fit wrote a .ply of the wrong size")
+    emit({"phase": "cli", "png_bytes": png_bytes,
+          "fit": {k: fit_line[k] for k in ("steps", "views", "loss_first", "loss_last",
+                                           "seconds")}})
 
     emit({"kernels": kernel_rows})
     print(smi, flush=True)

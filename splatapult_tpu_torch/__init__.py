@@ -1,14 +1,16 @@
 """splatapult_tpu_torch — the PyTorch/CUDA port of splatapult_tpu for one H100.
 
 A second package beside the JAX one, sub-package for sub-package (``io/``,
-``core/``, ``ops/``, ``utils/``, ``render.py``, ``cli.py``), plus ``kernels/``
+``core/``, ``ops/``, ``utils/``, ``render.py``, ``train.py``, ``cli.py``), plus ``kernels/``
 (the hand-written CUDA kernels and their loader) and ``convert.py`` (carry
 parameters across from the JAX package). It imports torch and numpy only.
 
 Ported so far: the viewer path — one forward render of one view through the
 tiled pipeline (prepare -> bin/sort -> gather -> composite -> assemble), with
-the expand and composite-forward kernels written for sm_90a. Entry points run
-on the GPU unless the caller passes ``device="cpu"``.
+the expand and composite-forward kernels written for sm_90a — and training on
+one device: autograd through that render with the composite-backward kernel
+and its per-splat tail, and ``train.fit_scene``. Entry points run on the GPU
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
-"""Command-line entry point of the port: render / bench / synth.
+"""Command-line entry point of the port: render / bench / fit / synth.
 
   render   one view of a .ply -> PNG            (the per-frame loop)
   bench    forward-only frame time of one view  (FPS counter, vsync-off mode)
+  fit      optimize a .ply against target PNGs  (the trainer loop)
   synth    write a procedural scene .ply        (debug cloud or garden stand-in)
 
 The other sub-commands of the JAX package's CLI (path, points, export, info,
-fit, save-pose, render --stereo) are not ported yet; see ROADMAP.md.
+save-pose, render --stereo) are not ported yet; see ROADMAP.md.
 
 Reference flag parity: --nosh (app.cpp:335), sRGB handling (FRAMEBUFFER_SRGB).
 Runs on the GPU unless --device cpu is given.
@@ -14,9 +15,12 @@ Runs on the GPU unless --device cpu is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import glob
 import json
 import logging
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -150,6 +154,88 @@ def cmd_bench(args):
     }))
 
 
+def _orbit_rig(scene, n_views, width, height, fovy, near=0.1, far=1000.0,
+               device="cuda"):
+    """Deterministic orbit camera batch around the scene centroid (the rig
+    `fit` uses; render targets with the same rig for the poses to align)."""
+    import torch
+
+    from splatapult_tpu_torch.core import transforms as T
+    from splatapult_tpu_torch.render import Camera
+
+    means = scene.means.detach().to("cpu", torch.float32).numpy()
+    center = means.mean(0)
+    radius = max(float(np.percentile(
+        np.linalg.norm(means - center, axis=1), 90)) * 2.2, 1e-3)
+    cams = []
+    for a in np.linspace(0, 2 * np.pi, n_views, endpoint=False):
+        eye = center + radius * np.asarray(
+            [np.cos(a), 0.35, np.sin(a)], np.float32)
+        cams.append(Camera.from_fov(
+            T.look_at(eye=eye.tolist(), target=center.tolist(),
+                      up=[0.0, 1.0, 0.0]),
+            fovy=fovy, width=width, height=height, near=near, far=far,
+            device=device))
+    return Camera(cam_to_world=torch.stack([c.cam_to_world for c in cams]),
+                  proj=torch.stack([c.proj for c in cams]))
+
+
+def cmd_fit(args):
+    """Optimize the scene against target images: the trainer-side loop the
+    reference only consumes the output of (ref README.md:70-83 — "generate
+    the .ply with the INRIA trainer"; here the framework IS a trainer).
+    Targets are PNGs in sorted-glob order, one per view of a generated orbit
+    rig (_orbit_rig). Camera discovery from a cameras.json and the floor
+    transform are not ported yet (ROADMAP queue 1 item 4)."""
+    from splatapult_tpu_torch.io.gaussians import save_gaussian_ply
+    from splatapult_tpu_torch.render import calibrate_config
+    from splatapult_tpu_torch.train import fit_scene
+    from splatapult_tpu_torch.utils.image import load_png
+
+    if args.adaptive:
+        raise NotImplementedError(
+            "fit --adaptive is not ported yet (ROADMAP queue 1 item 5: "
+            "adaptive density)")
+    scene = _load_scene(args)
+    paths = sorted(glob.glob(args.targets))
+    if not paths:
+        sys.exit(f"no target images match --targets {args.targets!r}")
+    raw = [load_png(p) for p in paths]
+    h, w = raw[0].shape[:2]
+    t4 = []
+    for p, t in zip(paths, raw):
+        if t.shape[:2] != (h, w):
+            sys.exit(f"target {p} is {t.shape[1]}x{t.shape[0]}, "
+                     f"expected {w}x{h} (all targets must match)")
+        if t.ndim == 2:
+            t = np.repeat(t[..., None], 3, axis=-1)
+        if t.shape[-1] == 3:
+            # RGB PNGs fit against alpha = 1 (opaque full-frame capture);
+            # RGBA PNGs (save_png keep_alpha) carry their own coverage
+            t = np.concatenate([t, np.ones_like(t[..., :1])], axis=-1)
+        t4.append(t.astype(np.float32))
+    targets = np.stack(t4)
+
+    args.width, args.height = w, h
+    cfg = dataclasses.replace(_config(args), pipeline="tiled", forward_only=False)
+    log.info("fitting %d targets against a generated orbit rig (cameras.json "
+             "discovery is not ported yet)", len(paths))
+    batch = _orbit_rig(scene, len(paths), w, h, fovy=np.deg2rad(args.fovy),
+                       near=args.near, far=args.far, device=args.device)
+    cfg = calibrate_config(scene, batch, cfg)
+    t0 = time.time()
+    scene, losses = fit_scene(scene, batch, targets, cfg, steps=args.steps,
+                              learning_rate=args.lr)
+    dt = time.time() - t0
+    save_gaussian_ply(args.output, scene)
+    print(json.dumps({
+        "steps": args.steps, "views": len(paths),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "splats": scene.num_gaussians, "densify_events": [],
+        "seconds": round(dt, 2), "output": args.output,
+    }))
+
+
 def cmd_synth(args):
     """Generate a procedural scene .ply — the debug cloud (ref:
     GaussianCloud::InitDebugCloud, src/gaussiancloud.cpp:505-578) or the
@@ -186,6 +272,26 @@ def main(argv=None):
     _add_common(p)
     p.add_argument("--iters", type=int, default=20)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("fit", help="optimize the scene against target PNGs "
+                                   "(trainer loop)")
+    _add_common(p)
+    p.add_argument("--targets", required=True,
+                   help="glob of target PNGs, sorted order = camera order")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--adaptive", action="store_true",
+                   help="INRIA-style adaptive density control (not ported "
+                        "yet: raises)")
+    p.add_argument("--orbit", action="store_true",
+                   help="fit against a generated orbit rig (one view per "
+                        "target, same order targets were rendered in); "
+                        "always on until cameras.json discovery is ported. "
+                        "The rig derives from the INPUT scene's "
+                        "centroid/extent, so targets must have been rendered "
+                        "with the same rig geometry (_orbit_rig) for poses "
+                        "to align")
+    p.set_defaults(fn=cmd_fit, output="fitted.ply")
 
     p = sub.add_parser("synth", help="generate a procedural scene .ply "
                                      "(debug cloud or garden-scale stand-in)")

@@ -36,6 +36,13 @@ def scene_from_numpy(scene, device=DEFAULT_DEVICE) -> GaussianScene:
     return GaussianScene(**{k: _tensor(field(k), device) for k in _SCENE_FIELDS})
 
 
+def scene_to_numpy(scene: GaussianScene) -> dict:
+    """GaussianScene -> dict of the five fields as float32 numpy arrays (for
+    comparing scenes across the two packages, e.g. after training steps)."""
+    return {k: getattr(scene, k).detach().to("cpu", torch.float32).numpy()
+            for k in _SCENE_FIELDS}
+
+
 def camera_from_numpy(cam_to_world, proj, device=DEFAULT_DEVICE) -> Camera:
     """[4, 4] (or [V, 4, 4]) camera-to-world and projection arrays -> Camera."""
     device = resolve_device(device)

@@ -81,18 +81,39 @@ def project_gaussians(
         0.5 * (height + ndc[1] * height),
     ])
 
+    # --- culling, first part: presort CLIP=1.5 + depth>0 (ref:
+    # shader/presort_compute.glsl:47-48) and the geometry-shader guard band
+    # (ref: shader/splat_geom.glsl:46-54). These need only t and ndc, which
+    # are finite for any finite input.
+    in_view = (
+        (depth > 0.0)
+        & (ndc[0].abs() < PRESORT_CLIP)
+        & (ndc[1].abs() < PRESORT_CLIP)
+        & (ndc[2] >= GUARD_NDC_Z)
+        & (ndc[0].abs() <= GUARD_NDC_XY)
+        & (ndc[1].abs() <= GUARD_NDC_XY)
+    )
+
     # --- Jacobian of projection+viewport at t (ref: shader/splat_vert.glsl:167-181).
     # Only the top-left 2x2 of the projected covariance is kept, and J's third
     # row contributes nothing to it, so the z row (jtz) is dropped entirely.
+    # Splats outside the view take a harmless stand-in position (on the axis,
+    # one unit ahead) from here on: a splat near the camera plane (|tz| -> 0)
+    # overflows the covariance to inf, and although it is culled and its
+    # upstream gradient is exactly 0, 0 * inf would put NaN into the
+    # gradients of its parameters. In-view splats are unchanged bit for bit.
     sx = proj_mat[0, 0]
     sy = proj_mat[1, 1]
-    safe_tz = torch.where(tz.abs() < 1e-12, 1e-12, tz)
+    tx_j = torch.where(in_view, t[0], 0.0)
+    ty_j = torch.where(in_view, t[1], 0.0)
+    tz_j = torch.where(in_view, tz, -1.0)
+    safe_tz = torch.where(tz_j.abs() < 1e-12, 1e-12, tz_j)
     inv_tz = 1.0 / safe_tz
     inv_tz2 = inv_tz * inv_tz
     jsx = -(sx * width) * 0.5 * inv_tz
     jsy = -(sy * height) * 0.5 * inv_tz
-    jtx = (sx * width) * 0.5 * t[0] * inv_tz2
-    jty = (sy * height) * 0.5 * t[1] * inv_tz2
+    jtx = (sx * width) * 0.5 * tx_j * inv_tz2
+    jty = (sy * height) * 0.5 * ty_j * inv_tz2
 
     # JW: rows of the 2x3 matrix [[jsx,0,jtx],[0,jsy,jty]] times W = view rotation.
     # All contractions are written as explicit component sums on [N] vectors.
@@ -107,23 +128,15 @@ def project_gaussians(
     c = sum(jw1[i] * v1[i] for i in range(3)) + COV2D_DILATION
     cov2d = stack_last([a, b, c])
 
-    # --- conic = inverse 2x2 (ref: shader/splat_geom.glsl:22-32)
+    # --- conic = inverse 2x2 (ref: shader/splat_geom.glsl:22-32). A
+    # determinant that cancels to <= 0 culls the splat; it then divides by 1
+    # instead of by the 1e-24 guard, for the reason given above.
     det = a * c - b * b
-    safe_det = torch.where(det.abs() < 1e-24, 1e-24, det)
+    mask = in_view & (det > 0.0)
+    safe_det = torch.where(mask, det, 1.0)
+    safe_det = torch.where(safe_det.abs() < 1e-24, 1e-24, safe_det)
     inv_det = 1.0 / safe_det
     conic = stack_last([c * inv_det, -b * inv_det, a * inv_det])
-
-    # --- culling: presort CLIP=1.5 + depth>0 (ref: shader/presort_compute.glsl:47-48)
-    # and the geometry-shader guard band (ref: shader/splat_geom.glsl:46-54).
-    mask = (
-        (depth > 0.0)
-        & (ndc[0].abs() < PRESORT_CLIP)
-        & (ndc[1].abs() < PRESORT_CLIP)
-        & (ndc[2] >= GUARD_NDC_Z)
-        & (ndc[0].abs() <= GUARD_NDC_XY)
-        & (ndc[1].abs() <= GUARD_NDC_XY)
-        & (det > 0.0)
-    )
 
     # --- screen extent from the covariance ellipse's major eigenvalue
     # (ref: shader/splat_geom.glsl:56-79). Only the scalar radius is needed for

@@ -36,6 +36,11 @@ SIGNATURES = {
     # tile_size, height, block, ln_cutoff, use_cutoff, early_stop_eps, stream
     "splat_composite_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                             _P],
+    # inst, tile_start, tile_nblk, tile_order, out_res, dout, d_inst,
+    # num_tiles, mcap, tiles_x, tile_size, height, block, ln_cutoff,
+    # use_cutoff, early_stop_eps, stream
+    "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _F, _P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Tile-binned front-to-back alpha compositing (forward).
+"""Tile-binned front-to-back alpha compositing, forward and backward.
 
 This stage replaces the reference's entire per-pixel GPU stage — the
 geometry-shader quad expansion (shader/splat_geom.glsl:83-106), the fragment
@@ -25,9 +25,12 @@ Layouts (B = block, P = tile_size^2 pixels):
                      ln_alpha, r, g, b, 0...  (null row: ln_alpha = -100)
   per-tile output    [T, 8, P] f32, rows: premult r, g, b, alpha, T, 0, 0, 0
 
-The backward (the transmittance-replay kernel of the JAX package and its
-per-splat reduction tail) arrives with the training slice; until then a
-backward through composite_from_feats raises.
+  instance gradients [9, Mcap] f32, rows: d_mean_x, d_mean_y, d_qa, d_qb,
+                     d_qc, d_ln_alpha, d_r, d_g, d_b (instance order)
+
+Backward: the transmittance-replay kernel re-walks each tile front to back
+and emits nine gradient columns per instance; a sort-and-difference tail
+(per_splat_sums) turns them into per-splat feature gradients.
 """
 
 from __future__ import annotations
@@ -35,12 +38,15 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from splatapult_tpu_torch import kernels
 from splatapult_tpu_torch.ops.binning import TileGrid
 
 NUM_FEATS = 16
 OUT_ROWS = 8
+NUM_GRAD_COLS = 9  # d_mx, d_my, d_qa, d_qb, d_qc, d_lna, dr, dg, db
+_PREFIX_BLOCK = 1024  # slots per block of the tail's two-level prefix sum (divides emax)
 NULL_LN_ALPHA = -100.0  # exp(-100) underflows to (sub)zero weight in float32
 # feature column indices
 F_MX, F_MY, F_QA, F_QB, F_QC, F_LNA, F_R, F_G, F_B = range(9)
@@ -71,16 +77,43 @@ def tile_block_ranges(tile_count: torch.Tensor, block: int):
     return start, nblk
 
 
-def _pixel_coords(grid: TileGrid, device):
-    """gl_FragCoord-style pixel centers of every tile -> ([T, P] x, [T, P] y)."""
+def _local_coords(grid: TileGrid, device):
+    """Tile-local pixel-centre offsets from the tile centre -> ([P] u, [P] v)."""
+    ts = grid.tile_size
+    pidx = torch.arange(grid.tile_pixels, device=device)
+    u = (pidx % ts).to(torch.float32) + 0.5 - 0.5 * ts
+    v = 0.5 * ts - torch.div(pidx, ts, rounding_mode="floor").to(torch.float32) - 0.5
+    return u, v
+
+
+def _tile_centers(grid: TileGrid, device):
+    """Centre of every tile in gl screen coordinates (+y up) -> ([T], [T])."""
     ts = grid.tile_size
     t = torch.arange(grid.num_tiles, device=device)
     tcx = (t % grid.tiles_x).to(torch.float32) * ts + 0.5 * ts
     tcy = grid.height - torch.div(t, grid.tiles_x, rounding_mode="floor").to(torch.float32) * ts - 0.5 * ts
-    pidx = torch.arange(grid.tile_pixels, device=device)
-    u = (pidx % ts).to(torch.float32) + 0.5 - 0.5 * ts
-    v = 0.5 * ts - torch.div(pidx, ts, rounding_mode="floor").to(torch.float32) - 0.5
+    return tcx, tcy
+
+
+def _pixel_coords(grid: TileGrid, device):
+    """gl_FragCoord-style pixel centers of every tile -> ([T, P] x, [T, P] y)."""
+    tcx, tcy = _tile_centers(grid, device)
+    u, v = _local_coords(grid, device)
     return tcx[:, None] + u[None, :], tcy[:, None] + v[None, :]
+
+
+def _block_weights(f, px, py, active, grid: TileGrid):
+    """Per-(instance, pixel) weights w = alpha * g of one block per tile:
+    f [T, B, F] rows, px/py [T, P] -> [T, B, P]; 0 below the 1/256 discard
+    (a comparison on the exponent) and for tiles that are not ``active``."""
+    dx = px[:, None, :] - f[:, :, F_MX, None]
+    dy = py[:, None, :] - f[:, :, F_MY, None]
+    qh = (f[:, :, F_QA, None] * dx * dx + f[:, :, F_QB, None] * dx * dy
+          + f[:, :, F_QC, None] * dy * dy + f[:, :, F_LNA, None])
+    w = torch.exp(qh)
+    if grid.alpha_cutoff > 0.0:
+        w = torch.where(qh > math.log(grid.alpha_cutoff), w, 0.0)
+    return torch.where(active[:, None, None], w, 0.0)
 
 
 def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
@@ -98,7 +131,6 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
     trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
     blocks = inst.reshape(-1, b, inst.shape[1])
     nb = blocks.shape[0]
-    ln_cut = math.log(grid.alpha_cutoff) if grid.alpha_cutoff > 0.0 else None
     # the deepest tile sets the loop length (one readback: this version is the
     # host path and the kernel's yardstick, never the CUDA render path)
     max_rank = int(tile_nblk.max()) if num_tiles > 0 else 0
@@ -107,14 +139,7 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
         if grid.early_stop_eps > 0.0 and rank > 0:
             active = active & (trans.amax(dim=1) >= grid.early_stop_eps)
         f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, F]
-        dx = px[:, None, :] - f[:, :, F_MX, None]  # [T, B, P]
-        dy = py[:, None, :] - f[:, :, F_MY, None]
-        qh = (f[:, :, F_QA, None] * dx * dx + f[:, :, F_QB, None] * dx * dy
-              + f[:, :, F_QC, None] * dy * dy + f[:, :, F_LNA, None])
-        w = torch.exp(qh)
-        if ln_cut is not None:
-            w = torch.where(qh > ln_cut, w, 0.0)
-        w = torch.where(active[:, None, None], w, 0.0)
+        w = _block_weights(f, px, py, active, grid)  # [T, B, P]
         one_minus = 1.0 - w
         incl = torch.cumprod(one_minus, dim=1)
         excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
@@ -125,71 +150,255 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
     return torch.cat([color, (1.0 - trans)[:, None], trans[:, None], zeros], dim=1)
 
 
-def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid):
+def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid):
+    """Plain PyTorch version of the composite backward kernel -> [9, mcap].
+
+    All tiles advance together by block rank, as in composite_fwd_plain; the
+    within-block prefix product (T before each instance) and prefix sum (S)
+    are a cumprod and a cumsum along the instance axis, the pixel sums are
+    contractions with the tile-local monomials [u^2, uv, v^2, u, v, 1].
+    """
+    _check_supported(grid)
+    dev = inst.device
+    num_tiles, b, p = grid.num_tiles, grid.block, grid.tile_pixels
+    px, py = _pixel_coords(grid, dev)  # [T, P]
+    tcx, tcy = (c[:, None] for c in _tile_centers(grid, dev))  # [T, 1]
+    u, v = _local_coords(grid, dev)  # [P]
+    basis = torch.stack([u * u, u * v, v * v, u, v, torch.ones_like(u)], dim=1)  # [P, 6]
+    d_rgb = dout[:, 0:3, :]  # [T, 3, P]
+    kconst = ((dout[:, 3, :] - dout[:, 4, :]) * out_res[:, 4, :]
+              - (d_rgb * out_res[:, 0:3, :]).sum(dim=1))  # [T, P]
+    trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
+    ssum = torch.zeros((num_tiles, p), dtype=torch.float32, device=dev)
+    blocks = inst.reshape(-1, b, inst.shape[1])
+    nb = blocks.shape[0]
+    d_blocks = torch.zeros((NUM_GRAD_COLS, nb, b), dtype=torch.float32, device=dev)
+    max_rank = int(tile_nblk.max()) if num_tiles > 0 else 0  # host path: one readback
+    for rank in range(max_rank):
+        active = rank < tile_nblk  # [T]
+        if grid.early_stop_eps > 0.0 and rank > 0:
+            active = active & (trans.amax(dim=1) >= grid.early_stop_eps)
+        f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, F]
+        w = _block_weights(f, px, py, active, grid)  # [T, B, P]
+        one_minus = 1.0 - w
+        incl = torch.cumprod(one_minus, dim=1)
+        t_before = trans[:, None, :] * torch.cat(
+            [torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+        eff = t_before * w  # [T, B, P]
+        cdot = torch.einsum("tbc,tcp->tbp", f[:, :, F_R:F_R + 3], d_rgb)
+        s_incl = ssum[:, None, :] + torch.cumsum(eff * cdot, dim=1)
+        dqh = w * ((kconst[:, None, :] + s_incl) / torch.clamp_min(one_minus, 1e-9)
+                   + t_before * cdot)
+        del cdot, t_before, one_minus, w
+        mom = torch.einsum("tbp,pk->tbk", dqh, basis)  # [T, B, 6]
+        del dqh
+        m_uu, m_uv, m_vv, m_u, m_v, m_1 = mom.unbind(dim=2)  # [T, B] each
+        mxu = f[:, :, F_MX] - tcx
+        myu = f[:, :, F_MY] - tcy
+        qa, qb, qc = f[:, :, F_QA], f[:, :, F_QB], f[:, :, F_QC]
+        gx = m_u - mxu * m_1  # sum dqh * dx  (dx = u - mxu)
+        gy = m_v - myu * m_1
+        cols = torch.stack([
+            -(2.0 * qa * gx + qb * gy),
+            -(qb * gx + 2.0 * qc * gy),
+            m_uu - 2.0 * mxu * m_u + mxu * mxu * m_1,
+            m_uv - mxu * m_v - myu * m_u + mxu * myu * m_1,
+            m_vv - 2.0 * myu * m_v + myu * myu * m_1,
+            m_1,
+            *torch.einsum("tbp,tcp->ctb", eff, d_rgb).unbind(dim=0),
+        ])  # [9, T, B]
+        del eff
+        # skipped and exhausted tiles keep their zero columns
+        d_blocks[:, (tile_start + rank)[active].long()] = cols[:, active]
+        trans = trans * incl[:, -1]
+        ssum = s_incl[:, -1]
+    return d_blocks.reshape(NUM_GRAD_COLS, nb * b)
+
+
+def deepest_first(tile_nblk):
+    """Launch order of the tiles for the two composite kernels -> [T] int32.
+    A tile's instances are a serial chain, so the long chains start at once
+    and the shallow tiles fill in behind them (see composite_fwd.cu)."""
+    return torch.argsort(tile_nblk, descending=True, stable=True).to(torch.int32)
+
+
+def _check_kernel_args(name, inst, tile_start, tile_nblk, tile_order, grid: TileGrid):
+    """Argument checks shared by the two wrappers -> the device type."""
+    _check_supported(grid)
+    if inst.dtype != torch.float32 or inst.ndim != 2 or inst.shape != (grid.mcap, NUM_FEATS):
+        raise ValueError(
+            f"{name} takes inst [mcap={grid.mcap}, {NUM_FEATS}] float32, "
+            f"got {tuple(inst.shape)} {inst.dtype}")
+    ints = [("tile_start", tile_start), ("tile_nblk", tile_nblk)]
+    if tile_order is not None:
+        ints.append(("tile_order", tile_order))
+    for what, a in ints:
+        if a.dtype != torch.int32 or a.shape != (grid.num_tiles,) or a.device != inst.device:
+            raise ValueError(
+                f"{name} takes {what} [T={grid.num_tiles}] int32 on "
+                f"{inst.device}, got {tuple(a.shape)} {a.dtype} {a.device}")
+    if inst.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {inst.device}")
+    if inst.device.type == "cuda" and grid.tile_pixels > 1024:
+        raise ValueError(f"{name} kernel supports tiles up to 32 x 32 pixels")
+    return inst.device.type
+
+
+def _cutoff_args(grid: TileGrid):
+    use_cutoff = grid.alpha_cutoff > 0.0
+    return math.log(grid.alpha_cutoff) if use_cutoff else 0.0, int(use_cutoff)
+
+
+def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None):
     """Composite forward over the tile-sorted instance buffer -> [T, 8, P] f32.
 
     The port of splatapult_tpu/ops/composite.py::_fwd_kernel (via _fwd_call).
     On a CUDA tensor this launches the hand-written kernel
     (kernels/csrc/composite_fwd.cu) on the current stream, without
     synchronizing, or raises; the plain version runs only for CPU tensors.
+    ``tile_order`` is the kernel's launch order (deepest_first; computed here
+    when not given).
     """
-    _check_supported(grid)
-    if inst.dtype != torch.float32 or inst.ndim != 2 or inst.shape != (grid.mcap, NUM_FEATS):
-        raise ValueError(
-            f"composite_fwd takes inst [mcap={grid.mcap}, {NUM_FEATS}] float32, "
-            f"got {tuple(inst.shape)} {inst.dtype}")
-    for name, a in (("tile_start", tile_start), ("tile_nblk", tile_nblk)):
-        if a.dtype != torch.int32 or a.shape != (grid.num_tiles,) or a.device != inst.device:
-            raise ValueError(
-                f"composite_fwd takes {name} [T={grid.num_tiles}] int32 on "
-                f"{inst.device}, got {tuple(a.shape)} {a.dtype} {a.device}")
-    if inst.device.type == "cpu":
+    if _check_kernel_args("composite_fwd", inst, tile_start, tile_nblk, tile_order,
+                          grid) == "cpu":
         return composite_fwd_plain(inst, tile_start, tile_nblk, grid)
-    if inst.device.type != "cuda":
-        raise ValueError(f"composite_fwd: unsupported device {inst.device}")
-    if grid.tile_pixels > 1024:
-        raise ValueError("composite_fwd kernel supports tiles up to 32 x 32 pixels")
     from splatapult_tpu_torch.kernels import _build
 
     lib = _build.load()
     inst = inst.contiguous()
     tile_start = tile_start.contiguous()
     tile_nblk = tile_nblk.contiguous()
-    # deepest tiles first: a tile's instances are a serial chain, so the long
-    # chains must start at once (see the kernel's source note)
-    tile_order = torch.argsort(tile_nblk, descending=True, stable=True).to(torch.int32)
+    tile_order = deepest_first(tile_nblk) if tile_order is None else tile_order.contiguous()
     out = torch.empty((grid.num_tiles, OUT_ROWS, grid.tile_pixels),
                       dtype=torch.float32, device=inst.device)
-    use_cutoff = grid.alpha_cutoff > 0.0
     with torch.cuda.device(inst.device):
         code = lib.splat_composite_fwd(
             inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(),
             tile_order.data_ptr(), out.data_ptr(), grid.num_tiles, grid.tiles_x, grid.tile_size,
-            grid.height, grid.block,
-            math.log(grid.alpha_cutoff) if use_cutoff else 0.0, int(use_cutoff),
+            grid.height, grid.block, *_cutoff_args(grid),
             float(grid.early_stop_eps), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "composite_fwd")
     kernels.LAUNCH_COUNTS["composite_fwd"] += 1
     return out
 
 
-class _ForwardOnlyComposite(torch.autograd.Function):
-    """Gather + composite forward whose backward raises: the hand-written
-    backward kernel belongs to the training slice, and silent zero gradients
-    would be worse than an error."""
+def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
+                  tile_order=None):
+    """Composite backward -> per-instance gradient columns [9, mcap] f32, zero
+    for skipped and padding blocks.
+
+    The port of splatapult_tpu/ops/composite.py::_bwd_kernel (via _bwd_call).
+    ``out_res`` is the forward's output, ``dout`` its cotangent (both
+    [T, 8, P]; rows 0-4 are read). On a CUDA tensor this launches the
+    hand-written kernel (kernels/csrc/composite_bwd.cu) on the current stream,
+    without synchronizing, or raises; the plain version runs only for CPU
+    tensors.
+    """
+    kind = _check_kernel_args("composite_bwd", inst, tile_start, tile_nblk, tile_order, grid)
+    rows = (grid.num_tiles, OUT_ROWS, grid.tile_pixels)
+    for what, a in (("out_res", out_res), ("dout", dout)):
+        if a.dtype != torch.float32 or a.shape != rows or a.device != inst.device:
+            raise ValueError(
+                f"composite_bwd takes {what} {list(rows)} float32 on {inst.device}, "
+                f"got {tuple(a.shape)} {a.dtype} {a.device}")
+    if kind == "cpu":
+        return composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid)
+    from splatapult_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    inst = inst.contiguous()
+    tile_start = tile_start.contiguous()
+    tile_nblk = tile_nblk.contiguous()
+    out_res = out_res.contiguous()
+    dout = dout.contiguous()  # autograd may hand over a strided cotangent
+    tile_order = deepest_first(tile_nblk) if tile_order is None else tile_order.contiguous()
+    # zeros: blocks that no tile owns or that the early stop skips are
+    # written by no CTA
+    d_inst = torch.zeros((NUM_GRAD_COLS, grid.mcap), dtype=torch.float32, device=inst.device)
+    with torch.cuda.device(inst.device):
+        code = lib.splat_composite_bwd(
+            inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(),
+            tile_order.data_ptr(), out_res.data_ptr(), dout.data_ptr(), d_inst.data_ptr(),
+            grid.num_tiles, grid.mcap, grid.tiles_x, grid.tile_size, grid.height, grid.block,
+            *_cutoff_args(grid), float(grid.early_stop_eps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "composite_bwd")
+    kernels.LAUNCH_COUNTS["composite_bwd"] += 1
+    return d_inst
+
+
+def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
+    """The backward's tail: per-instance gradient columns [9, mcap] -> per-splat
+    feature gradients [N + 1, 16] (the null row and columns 9.. are zero).
+
+    The port of the tail of splatapult_tpu/ops/composite.py::_cff_bwd, which
+    the JAX package also computes outside any kernel. Sorting by splat id
+    groups each splat's instances into the contiguous range
+    [seg_offs, seg_offs + seg_cnt) (seg_offs is the exclusive cumsum of
+    seg_cnt in splat order; null and padding slots carry id N and sort past
+    every real instance, with zero columns). One prefix sum, read at the
+    segment ends, and a first difference then give every segment's sum, in a
+    fixed order: the result is the same from run to run, which a scatter with
+    atomics is not. Splats with no instance get exactly zero.
+    """
+    if grid.grad_sort_dtype != "float32":
+        raise NotImplementedError(
+            "grad_sort_dtype='bfloat16' is not ported yet (ROADMAP queue 1 item "
+            "2: 'packed_colors / packed_feats16 / bf16 accumulation in B2')")
+    n = seg_offs.shape[0]
+    # torch.sort takes one key: sort the ids, carry the columns by gathering
+    # at the permutation
+    perm = torch.sort(inst_splat, stable=True)[1]
+    cols = d_inst[:, perm[: grid.emax]]  # [9, emax], splat-grouped
+    end = torch.clamp_max(seg_offs + seg_cnt, grid.emax)
+    at = torch.clamp(end - 1, 0, grid.emax - 1).long()
+    # Inclusive prefix sum along the slots, read only at the segment ends, in
+    # two levels: within blocks of _PREFIX_BLOCK slots, plus the exclusive
+    # prefix of the block totals. torch.cumsum over nine rows of millions of
+    # slots keeps nine thread blocks busy (4 ms for [9, 2.6M] on an H100, 80 %
+    # of this function); as [9 * emax / block, block] it fills the card.
+    # emax is a multiple of 4096 by construction (TileGrid.create).
+    blocks = cols.reshape(NUM_GRAD_COLS, -1, _PREFIX_BLOCK)
+    local = torch.cumsum(blocks, dim=2)
+    totals = local[:, :, -1]
+    carry = torch.cumsum(totals, dim=1) - totals  # [9, emax / block]
+    prefix_at = (local.reshape(NUM_GRAD_COLS, -1)[:, at]
+                 + carry[:, torch.div(at, _PREFIX_BLOCK, rounding_mode="floor")])
+    g = torch.where((end > 0)[None, :], prefix_at, 0.0)  # [9, N] prefix at segment ends
+    d_feats = torch.zeros((n + 1, NUM_FEATS), dtype=d_inst.dtype, device=d_inst.device)
+    d_feats[:n, :NUM_GRAD_COLS] = torch.diff(g, dim=1, prepend=g.new_zeros((NUM_GRAD_COLS, 1))).t()
+    return d_feats
+
+
+class _Composite(torch.autograd.Function):
+    """Row gather + composite forward kernel; backward = composite backward
+    kernel + per_splat_sums. The instance rows are kept for the backward (as
+    the JAX package keeps them) rather than gathered again."""
 
     @staticmethod
-    def forward(ctx, feats, inst_splat, tile_count, grid):
+    def forward(ctx, feats, inst_splat, tile_count, seg_offs, seg_cnt, grid):
         inst = feats[inst_splat.long()]
         start, nblk = tile_block_ranges(tile_count, grid.block)
-        return composite_fwd(inst, start, nblk, grid)
+        order = deepest_first(nblk)
+        out = composite_fwd(inst, start, nblk, grid, tile_order=order)
+        ctx.grid = grid
+        if not grid.forward_only:
+            ctx.save_for_backward(inst, start, nblk, order, out, inst_splat, seg_offs, seg_cnt)
+        return out
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "composite_from_feats has no backward yet: the backward arrives "
-            "with the training slice (ROADMAP: 'training: B3 + _cff_bwd tail "
-            "+ train.py')")
+    @once_differentiable
+    def backward(ctx, dout):
+        grid = ctx.grid
+        if grid.forward_only:
+            raise ValueError(
+                "composite_from_feats cannot be differentiated with "
+                "forward_only=True: the viewer contract declares no backward. "
+                "Render with forward_only=False to train.")
+        inst, start, nblk, order, out, inst_splat, seg_offs, seg_cnt = ctx.saved_tensors
+        d_inst = composite_bwd(inst, start, nblk, out, dout, grid, tile_order=order)
+        d_feats = per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid)
+        return d_feats, None, None, None, None, None
 
 
 def composite_from_feats(feats, bins, grid: TileGrid):
@@ -197,8 +406,10 @@ def composite_from_feats(feats, bins, grid: TileGrid):
 
     feats is [N + 1, 16] (last row = null splat); ``bins`` is the dict from
     ops.binning.bin_splats. One row gather builds the instance buffer, then
-    the composite forward kernel runs over it. Forward only: differentiating
-    through it raises.
+    the composite forward kernel runs over it. Differentiable in feats: the
+    backward kernel gives per-instance gradients and a sort-and-difference
+    tail sums them per splat (no scatter-add), -> [N + 1, 16] gradients.
     """
-    return _ForwardOnlyComposite.apply(
-        feats, bins["inst_splat"], bins["tile_count"], grid)
+    return _Composite.apply(
+        feats, bins["inst_splat"], bins["tile_count"], bins["seg_offs"],
+        bins["seg_cnt"], grid)

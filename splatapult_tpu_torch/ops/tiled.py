@@ -1,7 +1,8 @@
 """Tiled render path: binning + gather + composite kernel + image assembly.
 
 The production pipeline for real scene sizes. The binning indices are
-non-differentiable plumbing; this slice is forward only (see ops/composite.py).
+non-differentiable plumbing; gradients flow from the image to the packed
+features through ops/composite.composite_from_feats.
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ Differences by design, not translation:
 - sRGB knob: mirrors the FRAMEBUFFER_SRGB shader specialization
   (ref: shader/splat_vert.glsl:209-218).
 
-This slice serves the viewer path: the tiled pipeline, forward only. Options
-that later slices port raise NotImplementedError naming their ROADMAP item
-(here, in ops/tiled.composite_tiled and in ops/composite).
+Ported: the tiled pipeline, forward and (with forward_only=False) backward.
+Options that later slices port raise NotImplementedError naming their ROADMAP
+item (here, in ops/tiled.composite_tiled and in ops/composite).
 """
 
 from __future__ import annotations

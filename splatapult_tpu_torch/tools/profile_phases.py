@@ -1,10 +1,11 @@
-"""Where one forward render spends its time on the GPU.
+"""Where one forward render, and one training step, spend their time on the GPU.
 
     python -m splatapult_tpu_torch.tools.profile_phases [--splats N] [--width W]
         [--height H] [--iters K] [--out FILE.json]
 
 Renders the garden stand-in (default: 1.5M splats at 1920x1080, exact
-profile, calibrated capacity) and prints one JSON object with
+profile, calibrated capacity) and prints one JSON object with, under
+``render`` (forward only, as the viewer runs it):
 
 - ``frame_ms``: median milliseconds per ``render`` call by CUDA events;
 - ``phases_ms``: the same frame cut at the pipeline's public stage boundaries
@@ -13,7 +14,21 @@ profile, calibrated capacity) and prints one JSON object with
 - ``device_busy_ms`` and ``idle_share`` per frame from ``torch.profiler``
   (sum of device kernel time against the frame time), and ``top_kernels``: the
   device kernels by total time, with launches per frame;
-- the card's name and power limit as nvidia-smi reports them.
+
+and under ``train`` (one view per step, ``forward_only=False``, the target a
+render of the same scene, the start a copy with seeded noise):
+
+- ``step_ms``: median milliseconds per ``train.train_step`` by CUDA events;
+- ``phases_ms``: one step cut into prepare_splats, bin_splats, pack_features +
+  row gather, composite_fwd, assemble + loss, and the backward in its parts:
+  assemble + loss backward (to the composite's cotangent), composite_bwd (B3),
+  per_splat_sums (the tail), autograd back through pack_features and
+  prepare_splats, and the Adam step; also pack_features forward + backward
+  alone, beside a variant that stacks the columns instead of writing slices;
+- ``device_busy_ms``, ``idle_share``, launches per step and ``top_kernels``
+  from ``torch.profiler`` over whole steps;
+
+and the card's name and power limit as nvidia-smi reports them.
 
 GPU only: a host timing would not be a device number.
 """
@@ -21,6 +36,7 @@ GPU only: a host timing would not be a device number.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import statistics
@@ -43,6 +59,51 @@ def _event_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+def _profile(fn, n_prof: int, wall_ms: float) -> dict:
+    """Device busy time, idle share and kernels by time over ``n_prof`` calls
+    of ``fn``, against ``wall_ms`` per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            # host-side ops, and annotations projected onto the device (the
+            # optimizer's "Optimizer.step#..." range), repeat their kernels'
+            # device time
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3 / n_prof, ev.count / n_prof))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {
+        "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_kernel_launches": sum(r[2] for r in rows),
+        "top_kernels": [{"name": k[:120], "ms": ms, "launches": c} for k, ms, c in rows[:20]],
+    }
+
+
+def _pack_features_stacked(mean2d, conic, rgb, alpha):
+    """ops/tiled.pack_features written the other way, for timing only: the
+    sixteen columns stacked along dim 0, one transposing copy, the null row
+    appended. The shipped form writes column slices into a zeros table, which
+    costs one full-table pass per slice in the backward."""
+    zero = torch.zeros_like(alpha)
+    cols = [mean2d[:, 0], mean2d[:, 1], conic[:, 0] * -0.5, conic[:, 1] * -1.0,
+            conic[:, 2] * -0.5, torch.log(torch.clamp_min(alpha, 1e-37)),
+            rgb[:, 0], rgb[:, 1], rgb[:, 2]] + [zero] * 7
+    null = torch.zeros((1, 16), dtype=alpha.dtype, device=alpha.device)
+    null[0, 5] = -100.0
+    return torch.cat([torch.stack(cols, 0).t(), null], 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -56,6 +117,7 @@ def main(argv=None) -> int:
         print("profile_phases: no CUDA device", file=sys.stderr)
         return 1
 
+    from splatapult_tpu_torch import kernels, train
     from splatapult_tpu_torch.cli import gpu_name_and_power_limit
     from splatapult_tpu_torch.io.synth import garden_cameras, make_garden_scene
     from splatapult_tpu_torch.ops import binning as B, composite as C, tiled
@@ -68,6 +130,7 @@ def main(argv=None) -> int:
     cfg = R.calibrate_config(scene, cam, cfg)
     grid = tiled._grid_from_config(cfg, scene.num_gaussians)
 
+    # ---- the forward render, as the viewer runs it
     frame_ms = _event_ms(lambda: R.render(scene, cam, cfg), args.iters)
 
     # the stages of ops/tiled.composite_tiled, one at a time on kept inputs
@@ -92,37 +155,91 @@ def main(argv=None) -> int:
         "assemble_image": lambda: tiled.assemble_image(out, bins["tile_ok"], grid, cfg),
     }
     phases_ms = {k: _event_ms(fn, args.iters) for k, fn in phases.items()}
+    render_result = {"frame_ms": frame_ms, "phases_ms": phases_ms,
+                     **_profile(lambda: R.render(scene, cam, cfg), 3, frame_ms)}
 
-    from torch.profiler import ProfilerActivity, profile
+    # ---- one training step (one view)
+    tcfg = dataclasses.replace(cfg, forward_only=False)
+    tgrid = tiled._grid_from_config(tcfg, scene.num_gaussians)
+    target = R.render(scene, cam, tcfg)
+    gen = torch.Generator(device=scene.means.device).manual_seed(2)
+    params = R.GaussianScene(**{
+        f.name: (getattr(scene, f.name) + 0.01 * torch.randn(
+            getattr(scene, f.name).shape, generator=gen, device=scene.means.device)
+        ).requires_grad_(True) for f in dataclasses.fields(scene)})
+    leaves = [getattr(params, f.name) for f in dataclasses.fields(params)]
+    opt = train.default_optimizer(params, 1e-3)
+    kernels.reset_launch_counts()
+    step_ms = _event_ms(lambda: train.train_step(params, opt, cam, target, tcfg), args.iters)
+    launches_per_step = {k: v / (args.iters + 1) for k, v in kernels.LAUNCH_COUNTS.items()}
 
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            R.render(scene, cam, cfg)
-        torch.cuda.synchronize()
-    rows = []
-    from torch.autograd import DeviceType
+    # the step's stages, each timed alone on kept inputs
+    dp = R.prepare_splats(params, cam, tcfg)
+    feats_p = tiled.pack_features(dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])
+    bins_p = B.bin_splats(dp["mean2d"].detach(), dp["extent"], tgrid, dp["depth"])
+    out_p = C.composite_from_feats(feats_p, bins_p, tgrid)
+    loss = train.l2_image_loss(tiled.assemble_image(out_p, bins_p["tile_ok"], tgrid, tcfg),
+                               target)
+    dout = torch.autograd.grad(loss, out_p, retain_graph=True)[0]
+    inst_p = feats_p.detach()[bins_p["inst_splat"].long()]
+    start_p, nblk_p = C.tile_block_ranges(bins_p["tile_count"], tgrid.block)
+    order_p = C.deepest_first(nblk_p)
+    d_inst = C.composite_bwd(inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, order_p)
+    d_feats = C.per_splat_sums(d_inst, bins_p["inst_splat"], bins_p["seg_offs"],
+                               bins_p["seg_cnt"], tgrid)
+    pack_in = [dp[k].detach().requires_grad_(True) for k in ("mean2d", "conic", "rgb", "alpha")]
 
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side ops repeat their kernels' device time
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3 / n_prof, ev.count / n_prof))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    def loss_of(o):
+        return train.l2_image_loss(tiled.assemble_image(o, bins_p["tile_ok"], tgrid, tcfg),
+                                   target)
+
+    def pack_fwd_bwd():
+        torch.autograd.grad(tiled.pack_features(*pack_in), pack_in, d_feats)
+
+    def pack_stacked_fwd_bwd():
+        torch.autograd.grad(_pack_features_stacked(*pack_in), pack_in, d_feats)
+
+    if not torch.equal(_pack_features_stacked(*pack_in), tiled.pack_features(*pack_in)):
+        raise AssertionError("the stacked pack_features differs from the shipped one")
+
+    def adam_step():
+        opt.step()
+
+    out_leaf = out_p.detach().requires_grad_(True)
+    train_phases = {
+        "prepare_splats (with graph)": lambda: R.prepare_splats(params, cam, tcfg),
+        "bin_splats": lambda: B.bin_splats(dp["mean2d"].detach(), dp["extent"], tgrid,
+                                           dp["depth"]),
+        "pack_features+gather": lambda: tiled.pack_features(
+            dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])[bins_p["inst_splat"].long()],
+        "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p),
+        "assemble+loss": lambda: loss_of(out_p.detach()),
+        "backward/assemble+loss": lambda: torch.autograd.grad(loss_of(out_leaf), out_leaf),
+        "backward/composite_bwd": lambda: C.composite_bwd(
+            inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, order_p),
+        "backward/per_splat_sums": lambda: C.per_splat_sums(
+            d_inst, bins_p["inst_splat"], bins_p["seg_offs"], bins_p["seg_cnt"], tgrid),
+        "backward/pack_features+prepare_splats": lambda: torch.autograd.grad(
+            feats_p, leaves, d_feats, retain_graph=True),
+        "pack_features forward+backward alone": pack_fwd_bwd,
+        "pack_features forward+backward alone, stacked variant": pack_stacked_fwd_bwd,
+        "adam_step": adam_step,
+    }
+    train_phases_ms = {k: _event_ms(fn, args.iters) for k, fn in train_phases.items()}
+    # "assemble+loss" is inside "backward/assemble+loss" (grad needs a forward)
+    train_phases_ms["backward/assemble+loss"] -= train_phases_ms["assemble+loss"]
+    del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf
+    train_result = {
+        "step_ms": step_ms, "views_per_step": 1, "phases_ms": train_phases_ms,
+        "kernel_launches_per_step": launches_per_step,
+        **_profile(lambda: train.train_step(params, opt, cam, target, tcfg), 3, step_ms)}
 
     result = {
         "splats": scene.num_gaussians, "width": args.width, "height": args.height,
         "profile": R.profile_name(cfg), "emax": grid.emax, "mcap": grid.mcap,
         "instances": int(table["ends"][-1]),
-        "frame_ms": frame_ms, "phases_ms": phases_ms,
-        "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / frame_ms),
-        "device_kernel_launches_per_frame": sum(r[2] for r in rows),
-        "top_kernels": [{"name": k[:120], "ms_per_frame": ms, "launches_per_frame": c}
-                        for k, ms, c in rows[:20]],
+        "render": render_result, "train": train_result,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi_name_power_limit": gpu_name_and_power_limit(),
     }

@@ -1,5 +1,5 @@
 """PyTorch port vs. the JAX package: feature packing and the composite forward,
-on the CPU.
+on the CPU (the backward: test_torch_composite_bwd.py).
 
 The JAX side runs its Pallas composite kernel in interpret mode (as its own
 tests do); the port runs the plain version of its CUDA kernel. Both get the
@@ -124,10 +124,16 @@ def test_tile_block_ranges_agree_with_block_meta(case):
 
 
 def test_backward_through_composite_raises(case):
+    """A forward_only grid declares no backward: differentiating raises. (A
+    grid without it has a backward; test_torch_composite_bwd.py checks it.)"""
     feats = torch.from_numpy(np.array(case["feats"])).requires_grad_(True)
-    out = tc.composite_from_feats(feats, _torch_bins(case["bins"]), tb.TileGrid.create(**GRID_KW))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    out = tc.composite_from_feats(feats, _torch_bins(case["bins"]),
+                                  tb.TileGrid.create(forward_only=True, **GRID_KW))
+    with pytest.raises(ValueError, match="forward_only=True"):
         out.sum().backward()
+    out = tc.composite_from_feats(feats, _torch_bins(case["bins"]), tb.TileGrid.create(**GRID_KW))
+    out.sum().backward()
+    assert feats.grad.shape == feats.shape and bool(torch.isfinite(feats.grad).all())
 
 
 @pytest.mark.parametrize("knob", [

@@ -1,0 +1,195 @@
+"""PyTorch port vs. the JAX package: the composite backward (the plain version
+of the CUDA kernel, and the per-splat tail), on the CPU.
+
+The JAX side runs its Pallas backward kernel in interpret mode (as its own
+tests do); the port runs the plain version of its CUDA kernel. Both get the
+same instance rows, bins, forward output and a random cotangent.
+
+Tolerance: every gradient column agrees within 2e-4 of that column's largest
+magnitude (observed: below 1e-4). The JAX kernel takes its prefix products in
+log space with a 1e-37 floor and its prefix and pixel sums as matrix products;
+the port multiplies (1 - w) factors and sums with cumsum/einsum, so rounding
+and summation order differ. Blocks that the early stop skips, and blocks no
+tile owns, are exactly zero on both sides; splats with no instance get an
+exactly zero gradient row on both sides.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from splatapult_tpu.io.synth import garden_cameras as jgarden_cameras
+from splatapult_tpu.io.synth import make_garden_scene as jmake_garden_scene
+from splatapult_tpu.ops import binning as jb, composite as jc, tiled as jt
+from splatapult_tpu.render import RenderConfig as JRenderConfig
+from splatapult_tpu.render import prepare_splats as jprepare_splats
+
+from splatapult_tpu_torch.ops import binning as tb, composite as tc
+
+N, W, H = 2000, 96, 64
+# One thread for torch: the suite runs several worker processes per machine,
+# and an oversubscribed intra-op thread pool slows every worker down.
+torch.set_num_threads(1)
+
+GRID_KW = dict(width=W, height=H, num_splats=N, tile_size=16, block=8, max_instance_mult=4.0)
+REL_TOL = 2e-4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _torch_bins(jbins):
+    return {k: _t(v) for k, v in jbins.items()}
+
+
+def _close_by_column(got, want, axis):
+    """Each gradient column within REL_TOL of its own largest magnitude."""
+    other = tuple(i for i in range(want.ndim) if i != axis)
+    scale = np.abs(want).max(axis=other, keepdims=True)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= REL_TOL * scale + 1e-12).all(), (
+        (np.abs(got - want) / np.maximum(scale, 1e-30)).max(axis=other))
+
+
+@pytest.fixture(scope="module")
+def garden():
+    """Prepared 2k-garden splats -> JAX feats and bins, made once."""
+    scene = jmake_garden_scene(N, seed=0)
+    cam = jgarden_cameras(1, width=W, height_px=H)
+    d = jprepare_splats(scene, cam, JRenderConfig(width=W, height=H), sort=False)
+    feats = jt.pack_features(d["mean2d"], d["conic"], d["rgb"], d["alpha"])
+    bins = jb.bin_splats(d["mean2d"], d["extent"], jb.TileGrid.create(**GRID_KW), depth=d["depth"])
+    return {"feats": feats, "bins": bins, "kw": GRID_KW}
+
+
+@pytest.fixture(scope="module")
+def stack():
+    """64 nearly opaque, very wide splats over the whole image (the other
+    splats culled): every pixel saturates inside a tile's first block, so an
+    early stop skips the other seven. Same array shapes as the garden case,
+    so the JAX side compiles nothing new."""
+    n = 64
+    rng = np.random.default_rng(11)
+    mean2d = np.zeros((N, 2), np.float32)
+    mean2d[:n] = np.asarray([W / 2, H / 2], np.float32) + rng.uniform(-1, 1, (n, 2))
+    conic = np.tile(np.asarray([[1e-5, 0.0, 1e-5]], np.float32), (N, 1))
+    rgb = rng.uniform(0, 1, (N, 3)).astype(np.float32)
+    alpha = np.zeros((N,), np.float32)
+    alpha[:n] = 0.9
+    extent = np.zeros((N, 2), np.float32)
+    extent[:n] = 200.0
+    feats = jt.pack_features(*(jnp.asarray(a) for a in (mean2d, conic, rgb, alpha)))
+    bins = jb.bin_splats(jnp.asarray(mean2d), jnp.asarray(extent), jb.TileGrid.create(**GRID_KW),
+                         depth=jnp.asarray(np.arange(N, dtype=np.float32) + 1.0))
+    return {"feats": feats, "bins": bins, "kw": GRID_KW}
+
+
+def _both_sides(case, **knobs):
+    """The JAX kernel's and the port's [9, mcap] columns on the same inputs."""
+    jgrid = jb.TileGrid.create(**case["kw"], **knobs)
+    grid = tb.TileGrid.create(**case["kw"], **knobs)
+    bins = case["bins"]
+    inst = case["feats"][bins["inst_splat"]]
+    out = jc._fwd_call(inst, bins["block_meta"], jgrid)
+    rng = np.random.default_rng(5)
+    dout = rng.standard_normal(out.shape).astype(np.float32)  # rows 0-4 all non-zero
+    want = np.asarray(jc._bwd_call(inst, bins["block_meta"], out, jnp.asarray(dout), jgrid))
+    start, nblk = tc.tile_block_ranges(_t(bins["tile_count"]), grid.block)
+    got = tc.composite_bwd(_t(inst), start, nblk, _t(out), _t(dout), grid).numpy()
+    return got, want, grid, np.asarray(bins["block_meta"])
+
+
+@pytest.mark.parametrize("alpha_cutoff", [1.0 / 256.0, 0.0], ids=["cutoff", "nocutoff"])
+@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-4, 0.5], ids=["exact", "eps1e-4", "eps0.5"])
+def test_composite_bwd_plain_matches_jax_kernel(garden, early_stop_eps, alpha_cutoff):
+    got, want, grid, meta = _both_sides(garden, early_stop_eps=early_stop_eps,
+                                        alpha_cutoff=alpha_cutoff)
+    assert got.shape == want.shape == (tc.NUM_GRAD_COLS, grid.mcap)
+    assert np.abs(want).max() > 0.1
+    _close_by_column(got, want, axis=0)
+    # blocks past every tile's list (not live) are exactly zero
+    dead = np.repeat((meta & 1) == 0, grid.block)
+    assert dead.any() and (got[:, dead] == 0).all() and (want[:, dead] == 0).all()
+
+
+def test_composite_bwd_early_stop_skips_blocks_like_jax(stack):
+    got, want, grid, _ = _both_sides(stack, early_stop_eps=1e-3)
+    _close_by_column(got, want, axis=0)
+    skipped_got = (got.reshape(9, -1, grid.block) == 0).all(axis=(0, 2))
+    skipped_want = (want.reshape(9, -1, grid.block) == 0).all(axis=(0, 2))
+    np.testing.assert_array_equal(skipped_got, skipped_want)
+    # every tile holds all 64 splats = 8 blocks: the first runs, 7 are skipped
+    assert not skipped_got[0] and skipped_got[1:8].all()
+    assert (~skipped_got).sum() == grid.num_tiles
+    full, full_want, _, _ = _both_sides(stack)
+    _close_by_column(full, full_want, axis=0)
+    assert not (full.reshape(9, -1, grid.block) == 0).all(axis=(0, 2))[:8 * grid.num_tiles].any()
+
+
+@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-4], ids=["exact", "eps1e-4"])
+def test_composite_from_feats_vjp_matches_jax(garden, early_stop_eps):
+    """Kernel + tail: the cotangent of feats, [N + 1, 16]."""
+    jgrid = jb.TileGrid.create(early_stop_eps=early_stop_eps, **GRID_KW)
+    grid = tb.TileGrid.create(early_stop_eps=early_stop_eps, **GRID_KW)
+    out, vjp = jax.vjp(lambda f: jc.composite_from_feats(f, garden["bins"], jgrid),
+                       garden["feats"])
+    dout = np.random.default_rng(9).standard_normal(out.shape).astype(np.float32)
+    want = np.asarray(vjp(jnp.asarray(dout))[0])
+    feats = _t(garden["feats"]).requires_grad_(True)
+    tc.composite_from_feats(feats, _torch_bins(garden["bins"]), grid).backward(_t(dout))
+    got = feats.grad.numpy()
+    assert got.shape == want.shape == (N + 1, tc.NUM_FEATS)
+    _close_by_column(got[:, :9], want[:, :9], axis=1)
+    assert (got[:, 9:] == 0).all() and (got[N] == 0).all()
+    # splats with no instance: exactly zero rows, the same rows on both sides
+    no_inst = np.asarray(garden["bins"]["seg_cnt"]) == 0
+    assert 100 < no_inst.sum() < N - 100
+    assert (got[:N][no_inst] == 0).all() and (want[:N][no_inst] == 0).all()
+    assert (np.abs(got[:N][~no_inst]).sum(axis=1) > 0).mean() > 0.9
+
+
+def test_per_splat_sums_equal_scatter_add(garden):
+    """The sort-and-difference tail against the direct scatter it replaces."""
+    grid = tb.TileGrid.create(**GRID_KW)
+    bins = _torch_bins(garden["bins"])
+    rng = np.random.default_rng(2)
+    d_inst = torch.from_numpy(rng.standard_normal((9, grid.mcap)).astype(np.float32))
+    d_inst[:, bins["inst_splat"] == N] = 0.0  # null and padding slots carry zeros
+    got = tc.per_splat_sums(d_inst, bins["inst_splat"], bins["seg_offs"], bins["seg_cnt"], grid)
+    want = torch.zeros((N + 1, 9), dtype=torch.float64).index_add_(
+        0, bins["inst_splat"].long(), d_inst.t().double())
+    # the prefix sum runs over all instances in float32: its rounding is
+    # relative to the running total (here up to ~100), not to one segment
+    np.testing.assert_allclose(got[:, :9].numpy(), want.numpy(), rtol=0, atol=2e-4)
+    assert (got[:, 9:] == 0).all()
+
+
+def test_backward_contracts_raise(garden):
+    feats = _t(garden["feats"]).requires_grad_(True)
+    bins = _torch_bins(garden["bins"])
+    out = tc.composite_from_feats(feats, bins, tb.TileGrid.create(forward_only=True, **GRID_KW))
+    with pytest.raises(ValueError, match="forward_only=True"):
+        out.sum().backward()
+    out = tc.composite_from_feats(
+        feats, bins, tb.TileGrid.create(grad_sort_dtype="bfloat16", **GRID_KW))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+        out.sum().backward()
+
+
+def test_composite_bwd_rejects_bad_arguments():
+    grid = tb.TileGrid.create(**GRID_KW)
+    start = torch.zeros(grid.num_tiles, dtype=torch.int32)
+    inst = torch.zeros((grid.mcap, 16))
+    rows = torch.zeros((grid.num_tiles, 8, grid.tile_pixels))
+    with pytest.raises(ValueError, match="inst"):
+        tc.composite_bwd(inst[:, :8], start, start, rows, rows, grid)
+    with pytest.raises(ValueError, match="tile_nblk"):
+        tc.composite_bwd(inst, start, start.long(), rows, rows, grid)
+    with pytest.raises(ValueError, match="dout"):
+        tc.composite_bwd(inst, start, start, rows, rows[:, :5], grid)
+    with pytest.raises(ValueError, match="out_res"):
+        tc.composite_bwd(inst, start, start, rows.double(), rows, grid)
+    assert tc.NUM_GRAD_COLS == jc.NUM_GRAD_COLS == 9
