@@ -8,9 +8,14 @@ needs no network. It
 2. builds the CUDA kernels from splatapult_tpu_torch/kernels/csrc/;
 3. holds each kernel against its plain PyTorch version on the card — on
    mid-size cases (40k-splat garden, interleaved row ownership, capacity
-   overflow, early stop) and at the shapes the full-size render gives it,
+   overflow, early stop; hand-made chains of 0, 1, K-1, K, K+1, 2K, 2K+1 and
+   3K blocks for the K-block segments the composite backward works by, with
+   an early stop before the first segment ends, at a segment boundary and
+   inside a later segment) and at the shapes the full-size render gives it,
    where it also times kernel, plain version, and the nearest single library
-   call, and computes the roofline bound from that run's inputs; there it
+   call, and computes the roofline bound from that run's inputs (for the
+   composite kernels: from the (slot, pixel) pairs above the alpha discard
+   in this view, counted with the plain weights); there it
    also times the backward's per-splat tail beside the scatter
    (index_add_) that it replaces;
 4. renders the 1.5M-splat SH-degree-3 garden stand-in at 1920x1080 (exact
@@ -46,7 +51,11 @@ values may differ by up to 2e-2: the same threshold flips apply, and one flip
 removes a (pixel, instance) term of weight 1/256 from all nine columns of that
 instance and rescales what lies behind it in that pixel. The cotangent is
 standard normal from a seeded generator, so rows 0-4 are all non-zero.
-Goldens: atol 3e-3 (they are stored as float16).
+The forward's segment checkpoints (colour so far and T of every pixel at each
+segment's first block) are held to the composite_fwd tolerance, against the
+plain version's own checkpoints and, on the mid-size cases, against the plain
+forward run on the first j segments of every tile; the walked-block counts
+must be equal. Goldens: atol 3e-3 (they are stored as float16).
 """
 
 from __future__ import annotations
@@ -132,6 +141,19 @@ def grad_cols_close(got, want, what: str) -> float:
     return max_err
 
 
+def checkpoints_close(seg, ref_seg, reached, what: str):
+    """The kernel's Segments against the plain version's: the same
+    walked-block counts, and every checkpoint the forward reached (the bool
+    mask ``reached`` over the segment numbers) within the composite tolerance
+    -> (segments reached, max abs error)."""
+    if not torch.equal(seg.walked, ref_seg.walked):
+        raise AssertionError(f"{what}: segments.walked differs from the plain version's")
+    n = int(reached.sum())
+    if n == 0:
+        return 0, 0.0
+    return n, composite_close(seg.ckpt[reached], ref_seg.ckpt[reached], f"{what}: checkpoints")
+
+
 def seeded_cotangent(out):
     gen = torch.Generator(device=out.device).manual_seed(1)
     return torch.randn(out.shape, generator=gen, device=out.device)
@@ -151,6 +173,7 @@ def main() -> int:
     from splatapult_tpu_torch.core import transforms as T
     from splatapult_tpu_torch.ops import binning as B, composite as C, tiled
     from splatapult_tpu_torch import train
+    from splatapult_tpu_torch.tools.profile_phases import touched_shares
 
     # the package re-exports the render() function under the module's name
     R = importlib.import_module("splatapult_tpu_torch.render")
@@ -187,6 +210,46 @@ def main() -> int:
         start, nblk = C.tile_block_ranges(bins["tile_count"], grid.block)
         return grid, table, bins, inst, start, nblk
 
+    K = C.SEGMENT_BLOCKS
+
+    def segments_reached(start, seg, grid):
+        """Mask over the segment numbers: those whose first block the forward
+        walked (it wrote their checkpoints, the backward walks them)."""
+        return C.segment_table(start, seg.walked, grid)[2]
+
+    def check_composite(inst, start, nblk, grid, what):
+        """Both composite kernels, and the checkpoints between them, against
+        their plain versions on one instance buffer."""
+        out, seg = C.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+        ref, ref_seg = C.composite_fwd_plain(inst, start, nblk, grid, checkpoints=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, C.composite_fwd(inst, start, nblk, grid)):
+            raise AssertionError(f"composite_fwd ({what}): storing checkpoints changed the rows")
+        err = composite_close(out, ref, f"composite_fwd ({what})")
+        n_seg, ck_err = checkpoints_close(seg, ref_seg, segments_reached(start, seg, grid),
+                                          f"composite_fwd ({what})")
+        seg0 = C.first_segments(start)
+        # the first segments' checkpoints once more, against the plain forward
+        # cut off after j segments of every tile
+        for j in range(1, min(4, -(-int(nblk.max()) // K))):
+            at = seg.walked > j * K
+            if not bool(at.any()):
+                break
+            head = C.composite_fwd_plain(inst, start, torch.clamp_max(nblk, j * K), grid)
+            ck_err = max(ck_err, composite_close(
+                seg.ckpt[(seg0 + j)[at].long()], torch.cat([head[at, :3], head[at, 4:5]], dim=1),
+                f"composite_fwd ({what}): checkpoints of segment {j}"))
+        dout = seeded_cotangent(out)
+        d_inst = C.composite_bwd(inst, start, nblk, out, dout, grid, seg)
+        d_ref = C.composite_bwd_plain(inst, start, nblk, out, dout, grid)
+        torch.cuda.synchronize()
+        b_err = grad_cols_close(d_inst, d_ref, f"composite_bwd ({what})")
+        return {"case": what, "mcap": grid.mcap, "segments_reached": n_seg,
+                "deepest_tile_blocks": int(nblk.max()),
+                "tiles_stopped_early": int((seg.walked < nblk).sum()),
+                "composite_max_abs_err": err, "checkpoints_max_abs_err": ck_err,
+                "composite_bwd_max_scaled_err": b_err}
+
     def check_pair(scene, cam, cfg, what, row_stride=1, row_offset=None):
         grid, table, bins, inst, start, nblk = kernel_inputs(
             scene, cam, cfg, row_stride, row_offset)
@@ -197,18 +260,52 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"expand_fill != plain version ({what})")
-        out = C.composite_fwd(inst, start, nblk, grid)
-        ref = C.composite_fwd_plain(inst, start, nblk, grid)
-        torch.cuda.synchronize()
-        err = composite_close(out, ref, f"composite_fwd ({what})")
-        dout = seeded_cotangent(out)
-        d_inst = C.composite_bwd(inst, start, nblk, out, dout, grid)
-        d_ref = C.composite_bwd_plain(inst, start, nblk, out, dout, grid)
-        torch.cuda.synchronize()
-        b_err = grad_cols_close(d_inst, d_ref, f"composite_bwd ({what})")
-        return {"case": what, "emax": grid.emax, "mcap": grid.mcap,
-                "culled": int(bins["num_culled_instances"]),
-                "composite_max_abs_err": err, "composite_bwd_max_scaled_err": b_err}
+        return {**check_composite(inst, start, nblk, grid, what), "emax": grid.emax,
+                "culled": int(bins["num_culled_instances"])}
+
+    def check_chains(early_stop_eps, tile_size, block):
+        """Hand-made chains: tiles of exactly 0, 1, K-1, K, K+1, 2K, 2K+1 and
+        3K blocks of random splats near the tile's centre; in three of the
+        3K-block tiles one block of flat, nearly opaque splats ends the tile
+        under an early stop before its first segment ends (block 2), at a
+        segment boundary (block K-1) and inside the second segment (K+2)."""
+        depths = [0, 1, K - 1, K, K + 1, 2 * K, 2 * K + 1, 3 * K, 3 * K, 3 * K, 3 * K]
+        walls = {8: 2, 9: K - 1, 10: K + 2}
+        rows = sum(depths) * block
+        grid = B.TileGrid.create(width=len(depths) * tile_size, height=tile_size, num_splats=1,
+                                 tile_size=tile_size, block=block, max_instance_mult=rows,
+                                 early_stop_eps=early_stop_eps)
+        rng = np.random.default_rng(3)
+        # small splats (each covers about 2 % of a tile) whose opacities put an
+        # optical depth of about 2 on the deepest chain: T is still well above
+        # zero in a chain's last segment
+        alpha = min(0.5, 2.0 / (0.023 * max(depths) * block))
+        inst = np.zeros((grid.mcap, C.NUM_FEATS), np.float32)
+        inst[:, C.F_LNA] = C.NULL_LN_ALPHA
+        nblk = np.asarray(depths, np.int32)
+        start = (np.cumsum(nblk) - nblk).astype(np.int32)
+        for t, depth in enumerate(depths):
+            r0, n = start[t] * block, depth * block
+            centre = np.asarray([(t + 0.5) * tile_size, 0.5 * tile_size], np.float32)
+            inst[r0:r0 + n, 0:2] = centre + rng.uniform(-0.6, 0.6, (n, 2)) * tile_size
+            spread = rng.uniform(0.02, 0.1, (n, 2)) * tile_size  # gaussian sigma in pixels
+            inst[r0:r0 + n, C.F_QA] = -0.5 / spread[:, 0] ** 2
+            inst[r0:r0 + n, C.F_QC] = -0.5 / spread[:, 1] ** 2
+            inst[r0:r0 + n, C.F_QB] = rng.uniform(-0.3, 0.3, n) / (spread[:, 0] * spread[:, 1])
+            inst[r0:r0 + n, C.F_LNA] = np.log(rng.uniform(0.3, 1.7, n) * alpha)
+            inst[r0:r0 + n, C.F_R:C.F_B + 1] = rng.uniform(0, 1, (n, 3))
+            if t in walls:
+                w0 = r0 + walls[t] * block
+                inst[w0:w0 + block, C.F_QA:C.F_QC + 1] = [-1e-9, 0.0, -1e-9]
+                inst[w0:w0 + block, C.F_LNA] = np.log(0.9)
+        res = check_composite(
+            torch.from_numpy(inst).to(dev), torch.from_numpy(start).to(dev),
+            torch.from_numpy(nblk).to(dev), grid,
+            f"chains of {depths} blocks, tile {tile_size} block {block} eps {early_stop_eps}")
+        stopped = len(walls) if early_stop_eps > 0.0 else 0
+        if res["tiles_stopped_early"] < stopped:
+            raise AssertionError(f"{res['case']}: {res['tiles_stopped_early']} tiles stopped early")
+        return res
 
     # ---- phase 3a: kernels against their plain versions, mid-size cases
     mid = make_garden_scene(40_000, seed=0, device=dev)
@@ -233,7 +330,10 @@ def main() -> int:
                             dataclasses.replace(mid_cfg, depth_bits=20, tile_size=16,
                                                 tile_block=8),
                             "depth_bits=20 tile 16 block 8"))
-    emit({"phase": "kernel_cases", "cases": cases})
+    for eps in (0.0, 1e-3):
+        cases.append(check_chains(eps, tile_size=32, block=128))
+    cases.append(check_chains(1e-3, tile_size=16, block=8))
+    emit({"phase": "kernel_cases", "segment_blocks": K, "cases": cases})
 
     # ---- phase 3b + 4: the full-size render and the kernels at its shapes
     t0 = time.perf_counter()
@@ -286,18 +386,22 @@ def main() -> int:
     if not torch.equal(got, want):
         raise AssertionError("expand_fill != plain version at full size")
     e_err = float((got - want).abs().max())
-    out = C.composite_fwd(inst, tstart, nblk, grid)
-    ref = C.composite_fwd_plain(inst, tstart, nblk, grid)
+    out, seg = C.composite_fwd(inst, tstart, nblk, grid, checkpoints=True)
+    if not torch.equal(out, C.composite_fwd(inst, tstart, nblk, grid)):
+        raise AssertionError("composite_fwd: storing checkpoints changed the rows at full size")
+    ref, ref_seg = C.composite_fwd_plain(inst, tstart, nblk, grid, checkpoints=True)
     torch.cuda.synchronize()
     c_err = composite_close(out, ref, "composite_fwd at full size")
-    del ref
+    live_segments, ck_err = checkpoints_close(seg, ref_seg, segments_reached(tstart, seg, grid),
+                                              "composite_fwd at full size")
+    del ref, ref_seg
     dout = seeded_cotangent(out)
-    d_inst = C.composite_bwd(inst, tstart, nblk, out, dout, grid)
+    d_inst = C.composite_bwd(inst, tstart, nblk, out, dout, grid, seg)
     b_plain, d_ref = event_ms_once(
         lambda: C.composite_bwd_plain(inst, tstart, nblk, out, dout, grid))
     b_err = grad_cols_close(d_inst, d_ref, "composite_bwd at full size")
     del d_ref
-    if not torch.equal(d_inst, C.composite_bwd(inst, tstart, nblk, out, dout, grid)):
+    if not torch.equal(d_inst, C.composite_bwd(inst, tstart, nblk, out, dout, grid, seg)):
         raise AssertionError("composite_bwd differs between two runs on the same inputs")
 
     slots = torch.arange(grid.emax, dtype=torch.int32, device=dev)
@@ -305,8 +409,9 @@ def main() -> int:
     e_plain = event_ms(lambda: B.expand_fill_plain(*e_args), 5)
     e_lib = event_ms(lambda: torch.searchsorted(table["ends"], slots, right=True), 20)
     c_ms = event_ms(lambda: C.composite_fwd(inst, tstart, nblk, grid), 10)
+    c_ckpt_ms = event_ms(lambda: C.composite_fwd(inst, tstart, nblk, grid, checkpoints=True), 10)
     c_plain = event_ms(lambda: C.composite_fwd_plain(inst, tstart, nblk, grid), 1, warmup=0)
-    b_ms = event_ms(lambda: C.composite_bwd(inst, tstart, nblk, out, dout, grid), 10)
+    b_ms = event_ms(lambda: C.composite_bwd(inst, tstart, nblk, out, dout, grid, seg), 10)
 
     # the backward's tail on the same columns, beside the scatter it replaces
     # (index_add_ sums with atomics: faster or not, its result changes from
@@ -340,18 +445,31 @@ def main() -> int:
     e_ops = grid.emax * (3 * math.ceil(math.log2(max(n, 2))) + 10)  # compare/step + closed form
     e_bound_b = e_bytes / HBM_BYTES_PER_S * 1e3
     e_bound_o = e_ops / (FP32_FLOP_PER_S / 2) * 1e3  # one instruction per lane-clock
+    # The composite kernels: a (slot, pixel) pair whose weight falls under the
+    # alpha discard changes no output, so the operations the functions need
+    # are those of the pairs ABOVE it in this view (counted here with the
+    # plain weights' exponent; the exact profile walks every live slot) plus
+    # one test of each live slot against its tile's rectangle (~25
+    # multiply-adds). Per pair above the discard the forward does ~15
+    # multiply-adds, exp included; the backward that replay and about 25
+    # more: cdot 3, eff and S 2, dw with its division 6, dqh and T 2, the
+    # nine products 9, and the pixel sums' adds.
     p = grid.tile_pixels
+    touched = touched_shares(inst, tstart, nblk, grid)["all_tiles"]
+    pairs_above = touched["row_pixel_pairs_above_discard"]
+    pairs_shape = {"slot_pixel_pairs": live_slots * p, "pairs_above_discard": pairs_above,
+                   "share_above_discard": pairs_above / max(live_slots * p, 1),
+                   "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]}
     c_bytes = 64 * live_slots + 32 * grid.num_tiles * p + 8 * grid.num_tiles
-    c_flop = 2 * 15 * live_slots * p  # ~15 multiply-adds per (slot, pixel), exp included
+    c_flop = 2 * 15 * pairs_above + 2 * 25 * live_slots
     c_bound_b = c_bytes / HBM_BYTES_PER_S * 1e3
     c_bound_o = c_flop / FP32_FLOP_PER_S * 1e3
-    # backward: per slot a 64 B row read and nine floats written, per pixel
-    # five rows each of the forward's output and its cotangent read; per
-    # (slot, pixel) the forward's replay (~15 multiply-adds, exp included) and
-    # about 25 more: cdot 3, eff and S 2, dw with its division 6, dqh and T 2,
-    # the nine products 9, and the pixel sums' adds
-    b_bytes = (64 + 4 * C.NUM_GRAD_COLS) * live_slots + 40 * grid.num_tiles * p + 12 * grid.num_tiles
-    b_flop = 2 * 40 * live_slots * p
+    # backward bytes: per slot a 64 B row read and nine floats written, per
+    # pixel five rows each of the forward's output and its cotangent read,
+    # per pixel and segment a checkpoint of four floats
+    b_bytes = ((64 + 4 * C.NUM_GRAD_COLS) * live_slots + 40 * grid.num_tiles * p
+               + 16 * live_segments * p + 8 * grid.num_tiles)
+    b_flop = 2 * 40 * pairs_above + 2 * 25 * live_slots
     b_bound_b = b_bytes / HBM_BYTES_PER_S * 1e3
     b_bound_o = b_flop / FP32_FLOP_PER_S * 1e3
     kernel_rows = [
@@ -368,13 +486,14 @@ def main() -> int:
          "source": "splatapult_tpu_torch/kernels/csrc/composite_fwd.cu",
          "replaces": "splatapult_tpu/ops/composite.py:532",
          "launches": launches["composite_fwd"], "max_abs_err": c_err,
-         "ms": c_ms, "plain_ms": c_plain,
+         "ms": c_ms, "ms_storing_checkpoints": c_ckpt_ms,
+         "checkpoints_max_abs_err": ck_err, "plain_ms": c_plain,
          "bound_ms": max(c_bound_b, c_bound_o),
          "bound_by": "bytes" if c_bound_b >= c_bound_o else "operations",
          "library_ms": None,
          "shape": {"mcap": grid.mcap, "live_slots": live_slots,
                    "tiles": grid.num_tiles, "tile_pixels": p,
-                   "max_blocks_in_a_tile": int(nblk.max())}},
+                   "max_blocks_in_a_tile": int(nblk.max()), **pairs_shape}},
         {"name": "composite_bwd", "route": "cuda",
          "source": "splatapult_tpu_torch/kernels/csrc/composite_bwd.cu",
          "replaces": "splatapult_tpu/ops/composite.py:581",
@@ -386,7 +505,9 @@ def main() -> int:
          "library_ms": None,
          "shape": {"mcap": grid.mcap, "live_slots": live_slots,
                    "tiles": grid.num_tiles, "tile_pixels": p,
-                   "max_blocks_in_a_tile": int(nblk.max())}},
+                   "max_blocks_in_a_tile": int(nblk.max()), **pairs_shape,
+                   "segment_blocks": K, "segments": live_segments,
+                   "segment_ctas_launched": C.num_segments_cap(grid)}},
     ]
 
     emit({"phase": "render_full", "splats": n, "width": FULL_W, "height": FULL_H,
@@ -394,7 +515,8 @@ def main() -> int:
           "emax": grid.emax, "mcap": grid.mcap, "instances": total,
           "ms_per_frame_median": statistics.median(frame_ms), "ms_per_frame_all": frame_ms,
           "pixels_per_s": FULL_W * FULL_H / (statistics.median(frame_ms) * 1e-3),
-          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms, "composite_bwd": b_ms},
+          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms,
+                        "composite_fwd_storing_checkpoints": c_ckpt_ms, "composite_bwd": b_ms},
           "tail_ms": {"per_splat_sums": tail_ms, "index_add_": scatter_ms},
           "tail_max_scaled_err_vs_float64": {"per_splat_sums": tail_err,
                                              "index_add_": scatter_err},
@@ -404,7 +526,7 @@ def main() -> int:
           "device": kind, "nvidia_smi_name_power_limit": smi})
 
     # ---- phase 5: training at full size through fit_scene
-    del inst, out, dout, d_inst, table, bins, got, want, tail_args, splat_ids
+    del inst, out, dout, d_inst, table, bins, got, want, tail_args, splat_ids, seg
     views = garden_cameras(TRAIN_VIEWS, width=FULL_W, height_px=FULL_H, device=dev)
     view_list = [R.Camera(cam_to_world=m, proj=q)
                  for m, q in zip(views.cam_to_world, views.proj)]

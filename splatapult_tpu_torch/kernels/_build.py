@@ -32,15 +32,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # ends, tile0, nx, dbits, out, n, emax, row_step, stream
     "splat_expand_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # inst, tile_start, tile_nblk, tile_order, out, num_tiles, tiles_x,
-    # tile_size, height, block, ln_cutoff, use_cutoff, early_stop_eps, stream
-    "splat_composite_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
-                            _P],
-    # inst, tile_start, tile_nblk, tile_order, out_res, dout, d_inst,
-    # num_tiles, mcap, tiles_x, tile_size, height, block, ln_cutoff,
+    # inst, tile_start, tile_nblk, tile_order, out, ckpt, tile_walked,
+    # seg_blocks, num_tiles, tiles_x, tile_size, height, block, ln_cutoff,
     # use_cutoff, early_stop_eps, stream
-    "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "splat_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _I, _F, _P],
+    # inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst,
+    # num_segments, seg_blocks, num_tiles, mcap, tiles_x, tile_size, height,
+    # block, ln_cutoff, use_cutoff, stream
+    "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _I, _P],
 }
 
 _lib = None

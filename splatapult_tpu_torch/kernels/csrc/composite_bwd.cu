@@ -5,13 +5,12 @@
 // (launched by _bwd_call; helpers moment_basis, _block_weights, _tile_centers,
 // _scan_rows_add, _excl_cumprod_rows).
 //
-// Contract. `inst`, `tile_start`, `tile_nblk` and `tile_order` are the
-// forward's (composite_fwd.cu). `out_res` [T, 8, P] holds the forward's final
-// rows (r, g, b, alpha, T_fin, ...), `dout` [T, 8, P] the cotangent of those
-// rows; rows 0-4 of each are read. For every pixel p of tile t, with the
-// per-pixel constant
+// Contract. `inst` and `tile_start` are the forward's (composite_fwd.cu).
+// `out_res` [T, 8, P] holds the forward's final rows (r, g, b, alpha, T_fin,
+// ...), `dout` [T, 8, P] the cotangent of those rows; rows 0-4 of each are
+// read. For every pixel p of tile t, with the per-pixel constant
 //   K = (dalpha - dT) * T_fin - (dR * r_fin + dG * g_fin + dB * b_fin)
-// the kernel re-walks the tile's instances front to back with T = 1, S = 0:
+// the backward walks the tile's instances front to back with T = 1, S = 0:
 //   qh   = qa*dx*dx + qb*dx*dy + qc*dy*dy + ln_alpha
 //   w    = exp(qh), or 0 where qh <= ln(alpha_cutoff)
 //   cdot = r*dR + g*dG + b*dB
@@ -23,49 +22,159 @@
 // centre, turned into d_qa, d_qb, d_qc, d_ln_alpha, d_mean_x, d_mean_y, and
 // (dr, dg, db) = sum eff * [dR, dG, dB]. Output `d_inst` is [9, mcap] f32 in
 // instance order, rows (d_mx, d_my, d_qa, d_qb, d_qc, d_lna, dr, dg, db). The
-// caller zero-fills it: blocks skipped by the early stop and blocks past
-// every tile's list are written by no CTA. The early stop is the forward's
-// block-level test (from a tile's second block on, run only while some pixel
-// has T >= eps), so both passes walk the same blocks.
+// caller zero-fills it: blocks skipped by the forward's early stop and blocks
+// past every tile's list are written by no CTA.
 //
-// Design for this card. The TPU kernel carries (T, colour so far) between
-// grid steps in scratch memory, takes its within-block prefix sums as
-// triangular matrix products and its pixel sums as a [B,P]x[P,8] product,
-// because that machine has a matrix unit and no cheap per-lane recurrence.
-// Here one CTA owns a tile and one thread owns a pixel, exactly as in the
-// forward, so T and S are two registers and the prefix sums are the loop
-// itself. What costs is the other direction: nine sums over the CTA's pixels
-// for every instance. A warp is one 32-pixel stretch of the tile and most
-// instances touch few of them, so each warp first votes (__any_sync) whether
-// any of its lanes has w != 0 and otherwise does no arithmetic at all; a warp
-// that is touched reduces its nine values by shuffles (warp_sum9: 14 of them,
-// where nine separate butterflies take 45 and measured 16.2 ms against 12.2)
-// into the warp's slot in shared memory. Rows go through in sub-chunks of 32
-// (32 rows x 32 warps x 9 floats = 36 KB of static shared memory); after each
-// sub-chunk the CTA adds the slots in fixed warp order, so the result is the
-// same from run to run (shared-memory atomics would not be), applies the
-// moment algebra and writes 32 consecutive floats to each of the nine output
-// rows. expf and a true division, no fast-math: results stay within float
-// rounding of the plain version.
+// Segments. A tile's chain is not walked by one CTA. The forward leaves, for
+// every segment of kSegBlocks blocks (segments.cuh), a checkpoint [4, P] of
+// (r, g, b so far, T) at the segment's first block, and per tile the number
+// of blocks it walked (`tile_walked`, short of the tile's list when the early
+// stop ended it). CTA s of the grid takes segment number s: its tile is the
+// last one whose first segment number is <= s (a 32-way search over the tiles
+// that every warp makes for itself, three rounds for 2040 tiles; no table is
+// built), its first block (s - first number) * kSegBlocks; a number whose
+// first block lies past the blocks walked belongs to no segment and the CTA
+// exits. It starts from T of its checkpoint and from
+// S = dR*r + dG*g + dB*b of the checkpoint's colour (cdot is linear in the
+// colour, so the running sum of eff * cdot IS that product), and walks the
+// blocks [blk0, min(blk0 + kSegBlocks, tile_walked[t])). Both passes
+// therefore walk the same blocks without a second early-stop test here. S
+// from the checkpoint differs from the replayed sum by float association
+// only (about 1e-7 relative).
 //
-// Bound on an H100: operations. Per (instance slot, pixel) the replay costs
-// what the forward costs (one exp, ~15 fp32 multiply-adds) and the gradient
-// arithmetic about as much again (cdot 3, eff/S 2, dw with its division ~6,
-// dqh/T 2, nine products ~9, the reduction's adds ~9 amortised): counted as
-// 2 * 40 flop. Bytes are small beside that: 64 B per slot read, 36 B per slot
-// written, 40 B per pixel read.
+// What bounds it, measured on an H100 (garden 1.5M splats, 1920x1080, 2.40M
+// live rows, 2040 tiles of 32 x 32 pixels; counts from tools/profile_phases.py,
+// each decision below timed against its reverse on the same inputs). The
+// first version gave one CTA a whole tile and evaluated every (row, pixel)
+// pair: 12.4 ms.
+// Tiles hold 9.2 blocks on average but up to 147, and the 178 tiles (9 %)
+// deeper than 16 blocks hold 51 % of the rows; restricted to the other tiles
+// (49 % of the rows) that kernel took 3.6 ms, so about 5 ms of the 12.4 were a
+// few SMs finishing deep chains alone. Segments remove that tail. What is
+// left is instruction issue: a warp that evaluates a row per pixel pays about
+// 30 instructions for the quadratic form and a hundred more for the rest
+// (exp, a division, nine products, the warp sums). A warp laid out as a
+// 32 x 1 strip of the tile is touched by 32 % of the rows (47 % in the deepest
+// tiles), as an 8 x 4 patch by 21 % (32 %): warps are patches (kPatchWarps;
+// tiles whose side is no multiple of 8 keep strips; strips measured 4.5 ms
+// where patches take 3.9). And the other four fifths of the (row, warp) pairs
+// need not be looked at per pixel at all: see the row lists below (5.1 ms
+// without them, 3.9 with). Segments of 4, 8 and 16 blocks measured within 2 %
+// of each other; 8 keeps that view's checkpoints at 79 MB.
+//
+// One CTA, one segment, one pixel per thread (T and S are two registers):
+//   - rows arrive in sub-chunks of 32 by cp.async into a ring of four 2 KB
+//     buffers, the next sub-chunk while this one is walked;
+//   - per sub-chunk every warp first makes its list of rows: lane r takes row
+//     r and asks whether its gaussian can exceed the discard anywhere in the
+//     rectangle of the warp's pixel centres (row_may_touch: the exact maximum
+//     of the exponent over the rectangle, about 50 instructions once per
+//     lane), and a ballot is the list. The warp then walks only the listed
+//     rows; the others cost it nothing;
+//   - a listed row gets the full arithmetic in every lane (lanes below the
+//     discard carry w = 0 and add zeros), and the warp reduces its nine
+//     values by shuffles (warp_sum9: 14 where nine butterflies take 45) into
+//     its slot of the sub-chunk's slot array [warp][row][9] in shared
+//     memory; slots of rows that are not listed are never written and stay
+//     0. (A vote whether any lane has w != 0 before the arithmetic, as the
+//     first version had, only costs time now: the lists leave few rows that
+//     it would stop, 4.0 ms with it against 3.9 without.)
+//   - the slot array is double-buffered: while all warps walk sub-chunk i,
+//     nine of them first add the slots of sub-chunk i-1 in fixed warp order
+//     (the result is the same from run to run; shared-memory atomics would
+//     not be), zero them for sub-chunk i+1, meet at a named barrier, and one
+//     warp applies the moment algebra and writes 32 consecutive floats to
+//     each of the nine output rows. One CTA-wide barrier per sub-chunk.
+// 83 KB of dynamic shared memory and 32 registers: two CTAs per SM (one CTA
+// per SM with 48 registers measured 4.3 ms against 3.9; sub-chunks of 16 rows
+// 4.5 ms: the warps of a CTA finish a sub-chunk at different times and wait
+// at its barrier, and fewer rows between barriers even that out less).
+// Arithmetic: expf as in the forward; the one division per (row, pixel) is
+// __fdividef (2 ulp, divisor in [1e-9, 1]) because the IEEE division's slow
+// path and the registers it pins cost 14 % of the kernel (4.5 -> 3.9 ms) for
+// a last-bit difference, 2e-6 of a column's scale in the result. __expf would
+// save 5 % more (3.7 ms) and was not taken: w stays the forward's.
+//
+// Bound on an H100: operations, counted on the pairs that need them. A
+// (row, pixel) pair whose weight falls under the discard adds nothing to any
+// output, so the work the function needs is, per pair ABOVE the discard, the
+// forward's replay (one exp, ~15 fp32 multiply-adds) and the gradient
+// arithmetic (cdot 3, eff/S 2, dw with its division ~6, dqh/T 2, nine
+// products ~9, the reduction's adds ~9 amortised), counted as 2 * 40 flop,
+// plus per row one test against its tile's rectangle (2 * 25 flop). How many
+// pairs lie above the discard depends on the view and is counted from the
+// inputs (chip_smoke.py does, with the plain weights). A warp evaluates a
+// listed row in all 32 lanes, so the kernel does several times that work.
+// Bytes: 64 B per slot read, 36 B per slot written, 56 B per pixel and
+// segment read.
 
 #include <cuda_runtime.h>
 
+#include "segments.cuh"
+#include "warp_search.cuh"
+
 namespace {
 
+constexpr bool kPatchWarps = true;  // a warp is 8 x 4 pixels, not 32 x 1
 constexpr int kMaxThreads = 1024;  // one pixel per thread: tiles up to 32 x 32
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kChunkRows = 32;  // instance rows reduced per shared-memory round
-constexpr int kNumFeats = 16;   // floats per feature row (64 B)
+constexpr int kChunkRows = 32;     // instance rows per sub-chunk
+constexpr int kNumFeats = 16;      // floats per feature row (64 B)
+constexpr int kRowBufs = 4;        // ring of staged sub-chunks (walked, summed, arriving)
+constexpr int kRowBufFloats = kChunkRows * kNumFeats;
 constexpr int kOutRows = 8;
 constexpr int kGradCols = 9;
+constexpr int kSlotFloats = kChunkRows * kGradCols;  // one warp's slots of a sub-chunk
+constexpr int kSumThreads = (kSlotFloats + 31) / 32 * 32;  // warps that add the slots
 constexpr unsigned kFullMask = 0xffffffffu;
+
+__host__ __device__ constexpr int smem_floats(int nwarps) {
+  return kRowBufs * kRowBufFloats + 2 * nwarps * kSlotFloats + kSlotFloats;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Barrier among the first `count` threads of the CTA (a multiple of 32).
+__device__ __forceinline__ void sum_threads_barrier(int count) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
+}
+
+// Can the gaussian of one instance row put a weight above the discard on any
+// pixel centre inside the rectangle [xlo, xhi] x [ylo, yhi]? Conservative:
+// "no" is certain, "yes" means decide per pixel. For a gaussian the exponent
+// qh is a concave quadratic around the mean, so its largest value over the
+// rectangle is ln_alpha if the mean lies inside, and otherwise is taken on one
+// of the four edges, where it is a parabola in one variable: its vertex,
+// clamped to the edge (found with the fast division: near its vertex a
+// parabola does not feel a last-bit error of the position). The row is ruled
+// out when that largest value stays 0.01 below the discard (the margin covers
+// the rounding of both sides). A row whose form is not concave (or holds a
+// NaN) is never ruled out here.
+__device__ __forceinline__ float edge_max(float q_fixed, float q_cross, float q_free,
+                                          float fixed, float lo, float hi) {
+  // max over s in [lo, hi] of q_fixed * fixed^2 + q_cross * fixed * s + q_free * s^2
+  const float s = fminf(fmaxf(__fdividef(-0.5f * q_cross * fixed, q_free), lo), hi);
+  return q_fixed * fixed * fixed + (q_cross * fixed + q_free * s) * s;
+}
+
+__device__ __forceinline__ bool row_may_touch(float mx, float my, float qa, float qb,
+                                              float qc, float lna, float ln_cutoff,
+                                              float xlo, float xhi, float ylo, float yhi) {
+  if (!(qa <= 0.0f && qc <= 0.0f && 4.0f * qa * qc >= qb * qb)) return true;
+  const float x0 = xlo - mx, x1 = xhi - mx, y0 = ylo - my, y1 = yhi - my;
+  float qmax = 0.0f;
+  if (!(x0 <= 0.0f && x1 >= 0.0f && y0 <= 0.0f && y1 >= 0.0f)) {
+    qmax = fmaxf(fmaxf(edge_max(qa, qb, qc, x0, y0, y1), edge_max(qa, qb, qc, x1, y0, y1)),
+                 fmaxf(edge_max(qc, qb, qa, y0, x0, x1), edge_max(qc, qb, qa, y1, x0, x1)));
+  }
+  return !(qmax + lna <= ln_cutoff - 0.01f);
+}
 
 // Sums of nine per-lane values over the warp. The first eight are reduced
 // "transposed": at each of the first three steps a lane keeps half of its
@@ -106,25 +215,44 @@ __device__ __forceinline__ void warp_sum9(float (&m)[kGradCols], int lane) {
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 2)
 composite_bwd_kernel(const float* __restrict__ inst,
                      const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_nblk,
-                     const int* __restrict__ tile_order,
+                     const int* __restrict__ tile_walked,
+                     const float* __restrict__ ckpt,
                      const float* __restrict__ out_res,
                      const float* __restrict__ dout,
-                     float* __restrict__ d_inst, size_t mcap,
+                     float* __restrict__ d_inst, size_t mcap, int num_tiles,
                      int tiles_x, int tile_size, int height, int block,
-                     float ln_cutoff, int use_cutoff, float early_stop_eps) {
-  __shared__ __align__(16) float rows[kChunkRows * kNumFeats];
-  __shared__ float part[kChunkRows * kMaxWarps * kGradCols];
+                     float ln_cutoff, int use_cutoff) {
+  extern __shared__ __align__(16) float smem[];
 
-  const int t = tile_order[blockIdx.x];
-  const int p = threadIdx.x;  // this thread's pixel (blockDim >= npix)
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // segment number -> (tile, first block); the same in every warp
+  const int seg = blockIdx.x;
+  const int t = warp_upper_bound(
+      [&](int i) { return first_segment(__ldg(tile_start + i), i); }, num_tiles, seg, lane) - 1;
+  const int tile_start_t = tile_start[t];
+  const int blk0 = (seg - first_segment(tile_start_t, t)) * kSegBlocks;
+  const int nblk = min(kSegBlocks, tile_walked[t] - blk0);
+  // no such segment: the chain is shorter, or the forward's early stop ended it
+  if (nblk <= 0) return;
+
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
   const int npix = tile_size * tile_size;
+  float* const rows = smem;
+  float* const part = rows + kRowBufs * kRowBufFloats;  // [2][nwarps][kSlotFloats]
+  float* const sums = part + 2 * nwarps * kSlotFloats;  // [kSlotFloats]
+
+  // this thread's pixel of the tile (row-major index p)
+  int p = tid;
+  if (kPatchWarps && (tile_size & 7) == 0) {
+    const int across = tile_size >> 3;  // patches per tile row
+    p = ((warp / across) * 4 + (lane >> 3)) * tile_size + (warp % across) * 8 + (lane & 7);
+  }
   const bool has_pixel = p < npix;
 
   // tile-local offsets and pixel centre, as in the forward
@@ -135,96 +263,65 @@ composite_bwd_kernel(const float* __restrict__ inst,
   const float px = tcx + u;
   const float py = tcy + v;
 
-  // per-pixel cotangents and the constant K
+  const size_t first_row = ((size_t)tile_start_t + blk0) * block;
+  const int nrows_seg = nblk * block;
+  const int nsub = (nrows_seg + kChunkRows - 1) / kChunkRows;
+
+  // sub-chunk i of the segment -> rows[i % kRowBufs], asynchronously
+  auto stage = [&](int i) {
+    const int n16 = min(kChunkRows, nrows_seg - i * kChunkRows) * (kNumFeats / 4);
+    float* dst = rows + (i & (kRowBufs - 1)) * kRowBufFloats;
+    const float* src = inst + (first_row + (size_t)i * kChunkRows) * kNumFeats;
+    for (int c = tid; c < n16; c += nthreads) cp_async16(dst + c * 4, src + c * 4);
+  };
+  stage(0);
+  for (int i = tid * 4; i < 2 * nwarps * kSlotFloats; i += nthreads * 4) {
+    *reinterpret_cast<float4*>(part + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  // per-pixel cotangents, the constant K, and the state at the segment's start
   float dR = 0.0f, dG = 0.0f, dB = 0.0f, kconst = 0.0f;
+  float tr = 1.0f;    // T before the current instance
+  float ssum = 0.0f;  // S: running sum of eff * cdot
   if (has_pixel) {
     const float* o = out_res + (size_t)t * kOutRows * npix;
     const float* d = dout + (size_t)t * kOutRows * npix;
+    const float* c = ckpt + (size_t)seg * 4 * npix;
     dR = d[p];
     dG = d[npix + p];
     dB = d[2 * npix + p];
     kconst = (d[3 * npix + p] - d[4 * npix + p]) * o[4 * npix + p]
              - (dR * o[p] + dG * o[npix + p] + dB * o[2 * npix + p]);
+    ssum = dR * c[p] + dG * c[npix + p] + dB * c[2 * npix + p];
+    tr = c[3 * npix + p];
   }
-  float tr = 1.0f;    // T before the current instance
-  float ssum = 0.0f;  // S: running sum of eff * cdot
+  cp_async_wait_all();
+  __syncthreads();
 
-  const int nblk = tile_nblk[t];
-  const size_t first_row = (size_t)tile_start[t] * block;
-  for (int blk = 0; blk < nblk; ++blk) {
-    if (early_stop_eps > 0.0f && blk > 0) {
-      // the forward's block-level early stop: T never grows, so every later
-      // block is skipped too (their columns stay zero)
-      if (!__syncthreads_or(has_pixel && tr >= early_stop_eps)) break;
-    }
-    for (int c0 = 0; c0 < block; c0 += kChunkRows) {
-      const int nrows = min(kChunkRows, block - c0);
-      const size_t row0 = first_row + (size_t)blk * block + c0;
-      const float* src = inst + row0 * kNumFeats;
-      const int nfloat = nrows * kNumFeats;
-      __syncthreads();  // previous sub-chunk's rows and slots fully consumed
-      for (int i = p * 4; i < nfloat; i += blockDim.x * 4) {
-        *reinterpret_cast<float4*>(rows + i) =
-            *reinterpret_cast<const float4*>(src + i);
-      }
-      __syncthreads();
+  const int nsum = min(nthreads, kSumThreads);
+  // phase i: walk sub-chunk i into slot buffer i % 2, while the first warps
+  // turn slot buffer (i - 1) % 2 into the output rows of sub-chunk i - 1
+  for (int i = 0; i <= nsub; ++i) {
+    if (i + 1 < nsub) stage(i + 1);
 
-      for (int r = 0; r < nrows; ++r) {
-        const float* f = rows + r * kNumFeats;
-        const float4 g0 = *reinterpret_cast<const float4*>(f);      // mx my qa qb
-        const float4 g1 = *reinterpret_cast<const float4*>(f + 4);  // qc lna r g
-        const float colb = f[8];
-        const float dx = px - g0.x;
-        const float dy = py - g0.y;
-        const float qh = g0.z * dx * dx + g0.w * dx * dy + g1.x * dy * dy + g1.y;
-        float w = 0.0f;
-        if (has_pixel && (!use_cutoff || qh > ln_cutoff)) w = expf(qh);
-        float m[kGradCols];
-#pragma unroll
-        for (int k = 0; k < kGradCols; ++k) m[k] = 0.0f;
-        if (__any_sync(kFullMask, w != 0.0f)) {
-          const float cdot = g1.z * dR + g1.w * dG + colb * dB;
-          const float eff = tr * w;
-          ssum += eff * cdot;
-          const float dw = (kconst + ssum) / fmaxf(1.0f - w, 1e-9f) + tr * cdot;
-          const float dqh = w * dw;
-          tr *= 1.0f - w;
-          const float dqh_u = dqh * u;
-          const float dqh_v = dqh * v;
-          m[0] = dqh_u * u;
-          m[1] = dqh_u * v;
-          m[2] = dqh_v * v;
-          m[3] = dqh_u;
-          m[4] = dqh_v;
-          m[5] = dqh;
-          m[6] = eff * dR;
-          m[7] = eff * dG;
-          m[8] = eff * dB;
-          warp_sum9(m, lane);
+    if (i > 0 && tid < nsum) {
+      float* prev = part + ((i - 1) & 1) * nwarps * kSlotFloats;
+      for (int j = tid; j < kSlotFloats; j += nsum) {
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int wp = 0; wp < nwarps; ++wp) {
+          acc += prev[wp * kSlotFloats + j];
+          prev[wp * kSlotFloats + j] = 0.0f;
         }
-        // the warp's slot (zeros when untouched): sums 0-7 sit in lanes 0, 4, .., 28
-        float* slot = part + (r * nwarps + warp) * kGradCols;
-        if ((lane & 3) == 0) slot[lane >> 2] = m[0];
-        if (lane == 0) slot[8] = m[8];
+        sums[j] = acc;
       }
-      __syncthreads();
-
-      // the CTA's sums in fixed warp order, left in warp 0's slot
-      for (int i = p; i < nrows * kGradCols; i += blockDim.x) {
-        const int r = i / kGradCols;
-        const int k = i - r * kGradCols;
-        const float* col = part + (size_t)r * nwarps * kGradCols + k;
-        float acc = col[0];
-        for (int wp = 1; wp < nwarps; ++wp) acc += col[wp * kGradCols];
-        part[(size_t)r * nwarps * kGradCols + k] = acc;
-      }
-      __syncthreads();
-
+      sum_threads_barrier(nsum);
       // moments -> the nine gradient columns of each row (dx = u - mxu,
       // dy = v - myu with the mean in tile-local coordinates)
-      if (p < nrows) {
-        const float* mo = part + (size_t)p * nwarps * kGradCols;
-        const float* f = rows + p * kNumFeats;
+      const int prev_rows = min(kChunkRows, nrows_seg - (i - 1) * kChunkRows);
+      if (warp == 0 && lane < prev_rows) {
+        const float* mo = sums + lane * kGradCols;
+        const float* f = rows + ((i - 1) & (kRowBufs - 1)) * kRowBufFloats + lane * kNumFeats;
         const float mxu = f[0] - tcx;
         const float myu = f[1] - tcy;
         const float qa = f[2], qb = f[3], qc = f[4];
@@ -232,7 +329,7 @@ composite_bwd_kernel(const float* __restrict__ inst,
         const float m_u = mo[3], m_v = mo[4], m_1 = mo[5];
         const float gx = m_u - mxu * m_1;  // sum dqh * dx
         const float gy = m_v - myu * m_1;
-        float* o = d_inst + row0 + p;
+        float* o = d_inst + first_row + (size_t)(i - 1) * kChunkRows + lane;
         o[0] = -(2.0f * qa * gx + qb * gy);
         o[mcap] = -(qb * gx + 2.0f * qc * gy);
         o[2 * mcap] = m_uu - 2.0f * mxu * m_u + mxu * mxu * m_1;
@@ -244,29 +341,112 @@ composite_bwd_kernel(const float* __restrict__ inst,
         o[8 * mcap] = mo[8];
       }
     }
+
+    if (i < nsub) {
+      const float* rb = rows + (i & (kRowBufs - 1)) * kRowBufFloats;
+      float* slots = part + ((i & 1) * nwarps + warp) * kSlotFloats;
+      const int nrows = min(kChunkRows, nrows_seg - i * kChunkRows);
+      // which rows can reach this warp's pixels at all: lane r rules on row r
+      // against the warp's rectangle of pixel centres, the ballot is the list
+      unsigned cand;
+      {
+        float xlo = has_pixel ? px : 3e38f, xhi = has_pixel ? px : -3e38f;
+        float ylo = has_pixel ? py : 3e38f, yhi = has_pixel ? py : -3e38f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          xlo = fminf(xlo, __shfl_xor_sync(kFullMask, xlo, off));
+          xhi = fmaxf(xhi, __shfl_xor_sync(kFullMask, xhi, off));
+          ylo = fminf(ylo, __shfl_xor_sync(kFullMask, ylo, off));
+          yhi = fmaxf(yhi, __shfl_xor_sync(kFullMask, yhi, off));
+        }
+        bool maybe = lane < nrows;
+        if (maybe && use_cutoff) {
+          const float* f = rb + lane * kNumFeats;
+          const float4 g0 = *reinterpret_cast<const float4*>(f);      // mx my qa qb
+          const float2 g1 = *reinterpret_cast<const float2*>(f + 4);  // qc lna
+          maybe = row_may_touch(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, ln_cutoff,
+                                xlo, xhi, ylo, yhi);
+        }
+        cand = __ballot_sync(kFullMask, maybe);
+      }
+      while (cand != 0u) {
+        const int r = __ffs(cand) - 1;
+        cand &= cand - 1u;
+        const float* f = rb + r * kNumFeats;
+        const float4 g0 = *reinterpret_cast<const float4*>(f);      // mx my qa qb
+        const float4 g1 = *reinterpret_cast<const float4*>(f + 4);  // qc lna r g
+        const float dx = px - g0.x;
+        const float dy = py - g0.y;
+        const float qh = g0.z * dx * dx + g0.w * dx * dy + g1.x * dy * dy + g1.y;
+        float w = 0.0f;
+        if (has_pixel && (!use_cutoff || qh > ln_cutoff)) w = expf(qh);
+        const float cdot = g1.z * dR + g1.w * dG + f[8] * dB;
+        const float eff = tr * w;
+        ssum += eff * cdot;
+        // the fast division (2 ulp; the divisor lies in [1e-9, 1]): the exact
+        // one's slow path cost a seventh of the kernel's time
+        const float dw = __fdividef(kconst + ssum, fmaxf(1.0f - w, 1e-9f)) + tr * cdot;
+        const float dqh = w * dw;
+        tr *= 1.0f - w;
+        const float dqh_u = dqh * u;
+        const float dqh_v = dqh * v;
+        float m[kGradCols];
+        m[0] = dqh_u * u;
+        m[1] = dqh_u * v;
+        m[2] = dqh_v * v;
+        m[3] = dqh_u;
+        m[4] = dqh_v;
+        m[5] = dqh;
+        m[6] = eff * dR;
+        m[7] = eff * dG;
+        m[8] = eff * dB;
+        warp_sum9(m, lane);
+        // sums 0-7 sit in lanes 0, 4, .., 28, the ninth in every lane
+        float* slot = slots + r * kGradCols;
+        if ((lane & 3) == 0) slot[lane >> 2] = m[0];
+        if (lane == 0) slot[8] = m[8];
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
   }
 }
 
 }  // namespace
 
 extern "C" int splat_composite_bwd(const void* inst, const void* tile_start,
-                                   const void* tile_nblk, const void* tile_order,
+                                   const void* tile_walked, const void* ckpt,
                                    const void* out_res, const void* dout,
-                                   void* d_inst, int num_tiles, int mcap,
-                                   int tiles_x, int tile_size, int height,
-                                   int block, float ln_cutoff, int use_cutoff,
-                                   float early_stop_eps, void* stream) {
-  if (num_tiles <= 0) return 0;
+                                   void* d_inst, int num_segments, int seg_blocks,
+                                   int num_tiles, int mcap, int tiles_x,
+                                   int tile_size, int height, int block,
+                                   float ln_cutoff, int use_cutoff, void* stream) {
+  if (num_tiles <= 0 || num_segments <= 0) return 0;
   const int npix = tile_size * tile_size;
-  if (npix > kMaxThreads || block <= 0 || mcap <= 0) {
+  if (npix > kMaxThreads || block <= 0 || mcap <= 0 || seg_blocks != kSegBlocks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = (npix + 31) / 32 * 32;
-  composite_bwd_kernel<<<num_tiles, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int smem_bytes = smem_floats(threads / 32) * static_cast<int>(sizeof(float));
+  // above 48 KB shared memory is granted only on request: asked once per
+  // device, not per launch
+  static int granted_device = -1;
+  int device = -1;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device != granted_device) {
+    err = cudaFuncSetAttribute(composite_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_floats(kMaxThreads / 32) * static_cast<int>(sizeof(float)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted_device = device;
+  }
+  composite_bwd_kernel<<<num_segments, threads, smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(inst), static_cast<const int*>(tile_start),
-      static_cast<const int*>(tile_nblk), static_cast<const int*>(tile_order),
+      static_cast<const int*>(tile_walked), static_cast<const float*>(ckpt),
       static_cast<const float*>(out_res), static_cast<const float*>(dout),
-      static_cast<float*>(d_inst), static_cast<size_t>(mcap), tiles_x, tile_size,
-      height, block, ln_cutoff, use_cutoff, early_stop_eps);
+      static_cast<float*>(d_inst), static_cast<size_t>(mcap), num_tiles, tiles_x,
+      tile_size, height, block, ln_cutoff, use_cutoff);
   return static_cast<int>(cudaGetLastError());
 }

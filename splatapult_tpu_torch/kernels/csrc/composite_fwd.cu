@@ -19,6 +19,16 @@
 // has T < eps — the same block-level test the TPU kernel makes, so both give
 // the same image.
 //
+// For training (`ckpt` not null) the kernel also leaves what the backward
+// needs to start in the middle of a tile's chain: at the first block of
+// every segment of kSegBlocks blocks (segments.cuh) it stores the four
+// registers (r, g, b so far, T) of every pixel into ckpt[first_segment(t) + j]
+// ([4, P] per segment, j = block / kSegBlocks), and at the end the number of
+// blocks it walked into tile_walked[t] (less than tile_nblk[t] when the
+// early stop ended the tile). The backward (composite_bwd.cu) then gives each
+// segment its own CTA and walks exactly the blocks walked here. Serving
+// passes null pointers and stores nothing.
+//
 // Design for this card. On the TPU the grid walks all blocks in order and the
 // output block doubles as the carry between grid steps; here nothing carries
 // between CTAs, so one CTA owns one tile and loops over that tile's blocks
@@ -38,17 +48,25 @@
 // amortise the shared-memory reads but lengthen the chain, and measured
 // slower), and CTAs take their tiles from `tile_order`, deepest first, so
 // the long chains start at once and the shallow tiles fill in behind them.
-// Splitting a deep tile's list over several CTAs and combining the partial
-// (colour, T) pairs is the next step, for a later change.
+// Splitting a deep tile's list into the backward's segments, each computing a
+// local (colour, T) from T = 1, and combining them per tile is the next step,
+// for a later change: measured on an H100 (garden 1.5M splats, 1920x1080),
+// 3.25 ms, most of it the deepest chains and pairs under the discard.
 //
-// Bound on an H100: operations. Per (instance slot, pixel) it does one exp
-// and about 15 fp32 multiply-adds; with S slots and P pixels per tile that
-// is 2 * 15 * S * P flop against 67 TFLOP/s fp32 (S = 2.4M, P = 1024:
-// 74 GFLOP, about 1.1 ms), above both the exp count at the special-function
-// rate (16 per SM per clock) and the bytes (64 B per slot + 32 B per pixel:
-// about 0.22 GB, 0.07 ms at 3.35 TB/s).
+// Bound on an H100: operations, counted on the pairs that need them. A
+// (row, pixel) pair whose weight falls under the discard changes no output,
+// so the work the function needs is one exp and about 15 fp32 multiply-adds
+// (2 * 15 flop) per pair ABOVE the discard, plus per row one test against its
+// tile's rectangle (2 * 25 flop); the number of such pairs depends on the
+// view and is counted from the inputs (chip_smoke.py does, with the plain
+// weights). This kernel evaluates every pair of every walked row:
+// 2 * 15 * S * P flop (S = 2.4M slots, P = 1024 pixels: 74 GFLOP, 1.1 ms at
+// 67 TFLOP/s fp32). Bytes: 64 B per slot + 32 B per pixel, about 0.22 GB,
+// 0.07 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
+
+#include "segments.cuh"
 
 namespace {
 
@@ -63,6 +81,7 @@ composite_fwd_kernel(const float* __restrict__ inst,
                      const int* __restrict__ tile_nblk,
                      const int* __restrict__ tile_order,
                      float* __restrict__ out,
+                     float* __restrict__ ckpt, int* __restrict__ tile_walked,
                      int tiles_x, int tile_size, int height, int block,
                      float ln_cutoff, int use_cutoff, float early_stop_eps) {
   __shared__ __align__(16) float rows[kChunkRows * kNumFeats];
@@ -82,10 +101,18 @@ composite_fwd_kernel(const float* __restrict__ inst,
 
   const int nblk = tile_nblk[t];
   const size_t first_row = (size_t)tile_start[t] * block;
-  for (int blk = 0; blk < nblk; ++blk) {
+  int blk = 0;
+  for (; blk < nblk; ++blk) {
     if (early_stop_eps > 0.0f && blk > 0) {
       // block-level early stop: skip once no pixel of the tile has T >= eps
       if (!__syncthreads_or(has_pixel && tr >= early_stop_eps)) break;
+    }
+    if (ckpt != nullptr && blk % kSegBlocks == 0 && has_pixel) {
+      float* c = ckpt + (size_t)(first_segment(tile_start[t], t) + blk / kSegBlocks) * 4 * npix;
+      c[p] = cr;
+      c[npix + p] = cg;
+      c[2 * npix + p] = cb;
+      c[3 * npix + p] = tr;
     }
     for (int c0 = 0; c0 < block; c0 += kChunkRows) {
       const int nrows = min(kChunkRows, block - c0);
@@ -116,6 +143,7 @@ composite_fwd_kernel(const float* __restrict__ inst,
     }
   }
 
+  if (tile_walked != nullptr && p == 0) tile_walked[t] = blk;
   if (has_pixel) {
     float* o = out + (size_t)t * kOutRows * npix;
     o[p] = cr;
@@ -133,7 +161,9 @@ composite_fwd_kernel(const float* __restrict__ inst,
 
 extern "C" int splat_composite_fwd(const void* inst, const void* tile_start,
                                    const void* tile_nblk, const void* tile_order,
-                                   void* out, int num_tiles, int tiles_x,
+                                   void* out, void* ckpt, void* tile_walked,
+                                   int seg_blocks,
+                                   int num_tiles, int tiles_x,
                                    int tile_size, int height, int block,
                                    float ln_cutoff, int use_cutoff,
                                    float early_stop_eps, void* stream) {
@@ -142,11 +172,15 @@ extern "C" int splat_composite_fwd(const void* inst, const void* tile_start,
   if (npix > kMaxThreads || block <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (ckpt != nullptr &&
+      (seg_blocks != kSegBlocks || tile_walked == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int threads = (npix + 31) / 32 * 32;
   composite_fwd_kernel<<<num_tiles, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(inst), static_cast<const int*>(tile_start),
       static_cast<const int*>(tile_nblk), static_cast<const int*>(tile_order),
-      static_cast<float*>(out), tiles_x, tile_size, height, block, ln_cutoff,
-      use_cutoff, early_stop_eps);
+      static_cast<float*>(out), static_cast<float*>(ckpt), static_cast<int*>(tile_walked), tiles_x, tile_size,
+      height, block, ln_cutoff, use_cutoff, early_stop_eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,12 +30,17 @@ Layouts (B = block, P = tile_size^2 pixels):
 
 Backward: the transmittance-replay kernel re-walks each tile front to back
 and emits nine gradient columns per instance; a sort-and-difference tail
-(per_splat_sums) turns them into per-splat feature gradients.
+(per_splat_sums) turns them into per-splat feature gradients. A tile's chain
+is cut into segments of SEGMENT_BLOCKS blocks: the forward leaves a checkpoint
+(colour so far, T) at every segment's first block, and the backward kernel
+walks each segment in a CTA of its own, started from its checkpoint
+(first_segments, Segments).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -48,6 +53,9 @@ OUT_ROWS = 8
 NUM_GRAD_COLS = 9  # d_mx, d_my, d_qa, d_qb, d_qc, d_lna, dr, dg, db
 _PREFIX_BLOCK = 1024  # slots per block of the tail's two-level prefix sum (divides emax)
 NULL_LN_ALPHA = -100.0  # exp(-100) underflows to (sub)zero weight in float32
+# blocks per segment of a tile's chain; the kernels' kSegBlocks
+# (kernels/csrc/segments.cuh), whose launchers refuse any other value
+SEGMENT_BLOCKS = 8
 # feature column indices
 F_MX, F_MY, F_QA, F_QB, F_QC, F_LNA, F_R, F_G, F_B = range(9)
 
@@ -75,6 +83,52 @@ def tile_block_ranges(tile_count: torch.Tensor, block: int):
     nblk = torch.div(tile_count + (block - 1), block, rounding_mode="floor").to(torch.int32)
     start = torch.cumsum(nblk, 0, dtype=torch.int32) - nblk
     return start, nblk
+
+
+class Segments(NamedTuple):
+    """What the forward leaves for the backward at the cuts of the tiles'
+    chains (S = num_segments_cap(grid); segment numbers: first_segments)."""
+
+    # [S, 4, P] f32: (r, g, b so far, T) of every pixel before the segment's
+    # first block; written only for segments the forward reached
+    ckpt: torch.Tensor
+    # [T] int32: blocks the forward walked (< tile_nblk where the early stop
+    # ended the tile); the backward walks exactly these
+    walked: torch.Tensor
+
+
+def num_segments_cap(grid: TileGrid) -> int:
+    """Static bound on a view's segment numbers (see first_segments): the size
+    of the checkpoint buffer and of the backward kernel's grid."""
+    return grid.num_blocks // SEGMENT_BLOCKS + grid.num_tiles
+
+
+def first_segments(tile_start: torch.Tensor) -> torch.Tensor:
+    """Number of every tile's first segment -> [T] int32; segment j of tile t
+    (its blocks [j K, (j + 1) K), K = SEGMENT_BLOCKS) is number
+    first_segments[t] + j. The kernels compute the same from tile_start[t] and
+    t alone (kernels/csrc/segments.cuh), so no table is built on the render
+    path: tile_start[t] // K + t. Consecutive tiles' numbers differ by
+    floor((start + nblk) / K) - floor(start / K) + 1 >= ceil(nblk / K), so no
+    two segments share a number, and the largest stays below
+    num_blocks // K + T = num_segments_cap."""
+    t = torch.arange(tile_start.shape[0], dtype=torch.int32, device=tile_start.device)
+    return torch.div(tile_start, SEGMENT_BLOCKS, rounding_mode="floor").to(torch.int32) + t
+
+
+def segment_table(tile_start, tile_nblk, grid: TileGrid):
+    """The map the backward kernel's CTAs make for themselves, segment number
+    -> (tile, first block), for every number below num_segments_cap ->
+    (seg_tile [S], seg_blk0 [S], live [S] bool). CTA s takes the last tile
+    whose first segment number is <= s and the block (s - that number) * K;
+    the number belongs to a segment (``live``) iff that block exists in the
+    tile's chain, and otherwise the CTA exits. (Plain PyTorch for tests and
+    checks; nothing on the render path calls it.)"""
+    seg0 = first_segments(tile_start)
+    s = torch.arange(num_segments_cap(grid), dtype=torch.int32, device=tile_start.device)
+    seg_tile = (torch.searchsorted(seg0, s, right=True) - 1).to(torch.int32)
+    seg_blk0 = (s - seg0[seg_tile.long()]) * SEGMENT_BLOCKS
+    return seg_tile, seg_blk0, seg_blk0 < tile_nblk[seg_tile.long()]
 
 
 def _local_coords(grid: TileGrid, device):
@@ -116,8 +170,11 @@ def _block_weights(f, px, py, active, grid: TileGrid):
     return torch.where(active[:, None, None], w, 0.0)
 
 
-def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
-    """Plain PyTorch version of the composite forward kernel -> [T, 8, P].
+def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid, checkpoints=False):
+    """Plain PyTorch version of the composite forward kernel -> [T, 8, P], or
+    with ``checkpoints`` -> ([T, 8, P], Segments) as the kernel leaves them
+    (checkpoints of segments the forward did not reach are zero here,
+    unwritten there).
 
     The same per-block arithmetic as the kernel, looping over block rank
     within tile so that all tiles advance together; the within-block
@@ -131,6 +188,10 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
     trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
     blocks = inst.reshape(-1, b, inst.shape[1])
     nb = blocks.shape[0]
+    if checkpoints:
+        tile_seg0 = first_segments(tile_start)
+        ckpt = torch.zeros((num_segments_cap(grid), 4, p), dtype=torch.float32, device=dev)
+        walked = torch.zeros_like(tile_nblk)
     # the deepest tile sets the loop length (one readback: this version is the
     # host path and the kernel's yardstick, never the CUDA render path)
     max_rank = int(tile_nblk.max()) if num_tiles > 0 else 0
@@ -138,6 +199,11 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
         active = rank < tile_nblk  # [T]
         if grid.early_stop_eps > 0.0 and rank > 0:
             active = active & (trans.amax(dim=1) >= grid.early_stop_eps)
+        if checkpoints:
+            walked += active  # T never grows: a stopped tile stays stopped
+            if rank % SEGMENT_BLOCKS == 0:
+                at = (tile_seg0 + rank // SEGMENT_BLOCKS)[active].long()
+                ckpt[at] = torch.cat([color, trans[:, None]], dim=1)[active]
         f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, F]
         w = _block_weights(f, px, py, active, grid)  # [T, B, P]
         one_minus = 1.0 - w
@@ -147,16 +213,24 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid):
         color = color + torch.einsum("tbc,tbp->tcp", f[:, :, F_R:F_R + 3], eff)
         trans = trans * incl[:, -1]
     zeros = torch.zeros((num_tiles, 3, p), dtype=torch.float32, device=dev)
-    return torch.cat([color, (1.0 - trans)[:, None], trans[:, None], zeros], dim=1)
+    out = torch.cat([color, (1.0 - trans)[:, None], trans[:, None], zeros], dim=1)
+    if checkpoints:
+        return out, Segments(ckpt, walked)
+    return out
 
 
-def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid):
+def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
+                        state=None):
     """Plain PyTorch version of the composite backward kernel -> [9, mcap].
 
     All tiles advance together by block rank, as in composite_fwd_plain; the
     within-block prefix product (T before each instance) and prefix sum (S)
     are a cumprod and a cumsum along the instance axis, the pixel sums are
     contractions with the tile-local monomials [u^2, uv, v^2, u, v, 1].
+    ``state`` = (T, S), [T, P] each, starts the walk in the middle of the
+    chains (the kernel starts every segment so, from the forward's
+    checkpoints); the default is their start, T = 1 and S = 0. Only the tests
+    pass it, to replay on the CPU what the kernel does per segment.
     """
     _check_supported(grid)
     dev = inst.device
@@ -168,8 +242,11 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
     d_rgb = dout[:, 0:3, :]  # [T, 3, P]
     kconst = ((dout[:, 3, :] - dout[:, 4, :]) * out_res[:, 4, :]
               - (d_rgb * out_res[:, 0:3, :]).sum(dim=1))  # [T, P]
-    trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
-    ssum = torch.zeros((num_tiles, p), dtype=torch.float32, device=dev)
+    if state is None:
+        trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
+        ssum = torch.zeros((num_tiles, p), dtype=torch.float32, device=dev)
+    else:
+        trans, ssum = state
     blocks = inst.reshape(-1, b, inst.shape[1])
     nb = blocks.shape[0]
     d_blocks = torch.zeros((NUM_GRAD_COLS, nb, b), dtype=torch.float32, device=dev)
@@ -216,9 +293,9 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
 
 
 def deepest_first(tile_nblk):
-    """Launch order of the tiles for the two composite kernels -> [T] int32.
-    A tile's instances are a serial chain, so the long chains start at once
-    and the shallow tiles fill in behind them (see composite_fwd.cu)."""
+    """Launch order of the tiles for the composite forward kernel -> [T] int32.
+    A tile's instances are a serial chain there, so the long chains start at
+    once and the shallow tiles fill in behind them (see composite_fwd.cu)."""
     return torch.argsort(tile_nblk, descending=True, stable=True).to(torch.int32)
 
 
@@ -249,8 +326,11 @@ def _cutoff_args(grid: TileGrid):
     return math.log(grid.alpha_cutoff) if use_cutoff else 0.0, int(use_cutoff)
 
 
-def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None):
-    """Composite forward over the tile-sorted instance buffer -> [T, 8, P] f32.
+def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None,
+                  checkpoints=False):
+    """Composite forward over the tile-sorted instance buffer -> [T, 8, P] f32,
+    or with ``checkpoints`` (training) -> ([T, 8, P], Segments): what
+    composite_bwd needs to start every segment of a tile's chain on its own.
 
     The port of splatapult_tpu/ops/composite.py::_fwd_kernel (via _fwd_call).
     On a CUDA tensor this launches the hand-written kernel
@@ -261,7 +341,7 @@ def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None):
     """
     if _check_kernel_args("composite_fwd", inst, tile_start, tile_nblk, tile_order,
                           grid) == "cpu":
-        return composite_fwd_plain(inst, tile_start, tile_nblk, grid)
+        return composite_fwd_plain(inst, tile_start, tile_nblk, grid, checkpoints)
     from splatapult_tpu_torch.kernels import _build
 
     lib = _build.load()
@@ -271,19 +351,26 @@ def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None):
     tile_order = deepest_first(tile_nblk) if tile_order is None else tile_order.contiguous()
     out = torch.empty((grid.num_tiles, OUT_ROWS, grid.tile_pixels),
                       dtype=torch.float32, device=inst.device)
+    seg, seg_ptrs = None, (0, 0)  # serving: null pointers, nothing stored
+    if checkpoints:
+        seg = Segments(
+            torch.empty((num_segments_cap(grid), 4, grid.tile_pixels), dtype=torch.float32,
+                        device=inst.device),
+            torch.empty_like(tile_nblk))
+        seg_ptrs = (seg.ckpt.data_ptr(), seg.walked.data_ptr())
     with torch.cuda.device(inst.device):
         code = lib.splat_composite_fwd(
             inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(),
-            tile_order.data_ptr(), out.data_ptr(), grid.num_tiles, grid.tiles_x, grid.tile_size,
+            tile_order.data_ptr(), out.data_ptr(), *seg_ptrs, SEGMENT_BLOCKS,
+            grid.num_tiles, grid.tiles_x, grid.tile_size,
             grid.height, grid.block, *_cutoff_args(grid),
             float(grid.early_stop_eps), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "composite_fwd")
     kernels.LAUNCH_COUNTS["composite_fwd"] += 1
-    return out
+    return (out, seg) if checkpoints else out
 
 
-def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
-                  tile_order=None):
+def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid, segments=None):
     """Composite backward -> per-instance gradient columns [9, mcap] f32, zero
     for skipped and padding blocks.
 
@@ -291,10 +378,12 @@ def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
     ``out_res`` is the forward's output, ``dout`` its cotangent (both
     [T, 8, P]; rows 0-4 are read). On a CUDA tensor this launches the
     hand-written kernel (kernels/csrc/composite_bwd.cu) on the current stream,
-    without synchronizing, or raises; the plain version runs only for CPU
-    tensors.
+    without synchronizing, or raises; it needs ``segments``, the Segments
+    that composite_fwd(..., checkpoints=True) returned for the same inputs.
+    The plain version runs only for CPU tensors and walks whole chains, so it
+    takes no segments.
     """
-    kind = _check_kernel_args("composite_bwd", inst, tile_start, tile_nblk, tile_order, grid)
+    kind = _check_kernel_args("composite_bwd", inst, tile_start, tile_nblk, None, grid)
     rows = (grid.num_tiles, OUT_ROWS, grid.tile_pixels)
     for what, a in (("out_res", out_res), ("dout", dout)):
         if a.dtype != torch.float32 or a.shape != rows or a.device != inst.device:
@@ -303,25 +392,36 @@ def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
                 f"got {tuple(a.shape)} {a.dtype} {a.device}")
     if kind == "cpu":
         return composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid)
+    if segments is None:
+        raise ValueError(
+            "composite_bwd on a CUDA tensor takes the forward's segments: "
+            "composite_fwd(..., checkpoints=True)")
+    nseg = num_segments_cap(grid)
+    for what, a, shape, dtype in (
+            ("ckpt", segments.ckpt, (nseg, 4, grid.tile_pixels), torch.float32),
+            ("walked", segments.walked, (grid.num_tiles,), torch.int32)):
+        if (a.dtype != dtype or a.shape != shape or a.device != inst.device
+                or not a.is_contiguous()):
+            raise ValueError(
+                f"composite_bwd takes segments.{what} {list(shape)} {dtype} contiguous on "
+                f"{inst.device}, got {tuple(a.shape)} {a.dtype} {a.device}")
     from splatapult_tpu_torch.kernels import _build
 
     lib = _build.load()
     inst = inst.contiguous()
     tile_start = tile_start.contiguous()
-    tile_nblk = tile_nblk.contiguous()
     out_res = out_res.contiguous()
     dout = dout.contiguous()  # autograd may hand over a strided cotangent
-    tile_order = deepest_first(tile_nblk) if tile_order is None else tile_order.contiguous()
     # zeros: blocks that no tile owns or that the early stop skips are
     # written by no CTA
     d_inst = torch.zeros((NUM_GRAD_COLS, grid.mcap), dtype=torch.float32, device=inst.device)
     with torch.cuda.device(inst.device):
         code = lib.splat_composite_bwd(
-            inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(),
-            tile_order.data_ptr(), out_res.data_ptr(), dout.data_ptr(), d_inst.data_ptr(),
+            inst.data_ptr(), tile_start.data_ptr(), segments.walked.data_ptr(),
+            segments.ckpt.data_ptr(), out_res.data_ptr(), dout.data_ptr(), d_inst.data_ptr(),
+            nseg, SEGMENT_BLOCKS,
             grid.num_tiles, grid.mcap, grid.tiles_x, grid.tile_size, grid.height, grid.block,
-            *_cutoff_args(grid), float(grid.early_stop_eps),
-            torch.cuda.current_stream().cuda_stream)
+            *_cutoff_args(grid), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "composite_bwd")
     kernels.LAUNCH_COUNTS["composite_bwd"] += 1
     return d_inst
@@ -373,17 +473,20 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
 class _Composite(torch.autograd.Function):
     """Row gather + composite forward kernel; backward = composite backward
     kernel + per_splat_sums. The instance rows are kept for the backward (as
-    the JAX package keeps them) rather than gathered again."""
+    the JAX package keeps them) rather than gathered again, and so are the
+    forward's segment checkpoints. A forward_only grid stores neither."""
 
     @staticmethod
     def forward(ctx, feats, inst_splat, tile_count, seg_offs, seg_cnt, grid):
         inst = feats[inst_splat.long()]
         start, nblk = tile_block_ranges(tile_count, grid.block)
         order = deepest_first(nblk)
-        out = composite_fwd(inst, start, nblk, grid, tile_order=order)
         ctx.grid = grid
-        if not grid.forward_only:
-            ctx.save_for_backward(inst, start, nblk, order, out, inst_splat, seg_offs, seg_cnt)
+        if grid.forward_only:
+            return composite_fwd(inst, start, nblk, grid, tile_order=order)
+        out, segments = composite_fwd(inst, start, nblk, grid, tile_order=order,
+                                      checkpoints=True)
+        ctx.save_for_backward(inst, start, nblk, out, inst_splat, seg_offs, seg_cnt, *segments)
         return out
 
     @staticmethod
@@ -395,8 +498,8 @@ class _Composite(torch.autograd.Function):
                 "composite_from_feats cannot be differentiated with "
                 "forward_only=True: the viewer contract declares no backward. "
                 "Render with forward_only=False to train.")
-        inst, start, nblk, order, out, inst_splat, seg_offs, seg_cnt = ctx.saved_tensors
-        d_inst = composite_bwd(inst, start, nblk, out, dout, grid, tile_order=order)
+        inst, start, nblk, out, inst_splat, seg_offs, seg_cnt, *segments = ctx.saved_tensors
+        d_inst = composite_bwd(inst, start, nblk, out, dout, grid, Segments(*segments))
         d_feats = per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid)
         return d_feats, None, None, None, None, None
 

@@ -11,8 +11,10 @@ profile, calibrated capacity) and prints one JSON object with, under
 - ``phases_ms``: the same frame cut at the pipeline's public stage boundaries
   (prepare_splats, bin_splats, pack_features + row gather, composite_fwd,
   assemble_image), each timed with CUDA events over ``--iters`` repeats;
-- ``device_busy_ms`` and ``idle_share`` per frame from ``torch.profiler``
-  (sum of device kernel time against the frame time), and ``top_kernels``: the
+- ``device_busy_ms``, ``idle_ms`` and ``idle_share`` per frame from
+  ``torch.profiler`` (sum of device kernel time against the frame time; the
+  idle milliseconds are the host's and do not shrink when a kernel does, the
+  share does not compare across changes of the busy time), and ``top_kernels``: the
   device kernels by total time, with launches per frame;
 
 and under ``train`` (one view per step, ``forward_only=False``, the target a
@@ -25,8 +27,15 @@ render of the same scene, the start a copy with seeded noise):
   per_splat_sums (the tail), autograd back through pack_features and
   prepare_splats, and the Adam step; also pack_features forward + backward
   alone, beside a variant that stacks the columns instead of writing slices;
-- ``device_busy_ms``, ``idle_share``, launches per step and ``top_kernels``
-  from ``torch.profiler`` over whole steps;
+- ``chains``: what the composite kernels' design rests on — the histogram of
+  blocks per tile (tiles over 8, 16, 32, 64 blocks and their share of the
+  live slots); the share of (instance row, warp) pairs of the backward with
+  any pixel above the alpha discard, for warps laid out as 32 x 1 strips and
+  as 8 x 4 patches, and the share of (instance row, pixel) pairs above it,
+  overall and in the 32 deepest tiles; the backward's time on all tiles
+  beside its time on the tiles of at most 16 blocks;
+- ``device_busy_ms``, ``idle_ms``, ``idle_share``, launches per step and
+  ``top_kernels`` from ``torch.profiler`` over whole steps;
 
 and the card's name and power limit as nvidia-smi reports them.
 
@@ -84,8 +93,13 @@ def _profile(fn, n_prof: int, wall_ms: float) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return {
-        "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_busy_ms": busy, "idle_ms": max(0.0, wall_ms - busy),
+        "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "device_kernel_launches": sum(r[2] for r in rows),
+        # the package's own kernels by their device time alone (CUDA events
+        # around a wrapper also see the host's time to issue a short kernel)
+        "own_kernels_device_ms": {k: ms for k, ms, _ in rows
+                                  if "expand_fill_kernel" in k or "composite_" in k},
         "top_kernels": [{"name": k[:120], "ms": ms, "launches": c} for k, ms, c in rows[:20]],
     }
 
@@ -102,6 +116,65 @@ def _pack_features_stacked(mean2d, conic, rgb, alpha):
     null = torch.zeros((1, 16), dtype=alpha.dtype, device=alpha.device)
     null[0, 5] = -100.0
     return torch.cat([torch.stack(cols, 0).t(), null], 0)
+
+
+def _depth_histogram(nblk) -> dict:
+    """How uneven the tiles' chains are: tiles deeper than 8, 16, 32 and 64
+    blocks and the share of all live slots they hold."""
+    total = int(nblk.sum())
+    hist = {"tiles": int(nblk.numel()), "live_blocks": total,
+            "mean_blocks": total / max(int(nblk.numel()), 1), "max_blocks": int(nblk.max())}
+    for thr in (8, 16, 32, 64):
+        deep = nblk > thr
+        hist[f"over_{thr}_blocks"] = {"tiles": int(deep.sum()),
+                                      "share_of_live_slots": int(nblk[deep].sum()) / max(total, 1)}
+    return hist
+
+
+def touched_shares(inst, start, nblk, grid) -> dict:
+    """Share of (instance row, warp) pairs of the composite kernels in which
+    at least one of the warp's 32 pixels passes the alpha discard, for a warp
+    laid out as a 32 x 1 strip of the tile and as an 8 x 4 patch, and the
+    share (and count) of (instance row, pixel) pairs that pass it: over every
+    live row of every tile, and within the 32 deepest tiles. Counted with the
+    plain weights' exponent on the card, tile by tile."""
+    import math
+
+    from splatapult_tpu_torch.ops import composite as C
+
+    dev = inst.device
+    ts, p, block = grid.tile_size, grid.tile_pixels, grid.block
+    if ts % 8 != 0 or p % 32 != 0 or grid.alpha_cutoff <= 0.0:
+        raise ValueError("touched shares need a tile side that is a multiple of 8 and a discard")
+    ln_cut = math.log(grid.alpha_cutoff)
+    px, py = C._pixel_coords(grid, dev)
+    # (row, warp) pairs, of them touched as strip and as patch, touched pixels
+    counts = torch.zeros((grid.num_tiles, 4), dtype=torch.int64, device=dev)
+    start_h, nblk_h = start.tolist(), nblk.tolist()
+    for t in range(grid.num_tiles):
+        r0, r1 = start_h[t] * block, (start_h[t] + nblk_h[t]) * block
+        for c0 in range(r0, r1, 4096):
+            f = inst[c0:min(c0 + 4096, r1)]
+            dx = px[t][None, :] - f[:, C.F_MX, None]
+            dy = py[t][None, :] - f[:, C.F_MY, None]
+            hit = (f[:, C.F_QA, None] * dx * dx + f[:, C.F_QB, None] * dx * dy
+                   + f[:, C.F_QC, None] * dy * dy + f[:, C.F_LNA, None]) > ln_cut  # [R, P]
+            strip = hit.reshape(-1, p // 32, 32).any(dim=2)
+            patch = hit.reshape(-1, ts // 4, 4, ts // 8, 8).any(dim=4).any(dim=2)
+            counts[t, 0] += strip.numel()
+            counts[t, 1] += strip.sum()
+            counts[t, 2] += patch.sum()
+            counts[t, 3] += hit.sum()
+    deepest = torch.argsort(nblk, descending=True)[:32]
+
+    def shares(c):
+        pairs, strip, patch, pixels = (int(x) for x in c.sum(dim=0))
+        return {"pairs": pairs, "strip_32x1": strip / max(pairs, 1),
+                "patch_8x4": patch / max(pairs, 1),
+                "row_pixel_pairs_above_discard": pixels,
+                "pixel": pixels / max(pairs * 32, 1)}
+
+    return {"all_tiles": shares(counts), "deepest_32_tiles": shares(counts[deepest])}
 
 
 def main(argv=None) -> int:
@@ -184,7 +257,8 @@ def main(argv=None) -> int:
     inst_p = feats_p.detach()[bins_p["inst_splat"].long()]
     start_p, nblk_p = C.tile_block_ranges(bins_p["tile_count"], tgrid.block)
     order_p = C.deepest_first(nblk_p)
-    d_inst = C.composite_bwd(inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, order_p)
+    seg_p = C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p, checkpoints=True)[1]
+    d_inst = C.composite_bwd(inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, seg_p)
     d_feats = C.per_splat_sums(d_inst, bins_p["inst_splat"], bins_p["seg_offs"],
                                bins_p["seg_cnt"], tgrid)
     pack_in = [dp[k].detach().requires_grad_(True) for k in ("mean2d", "conic", "rgb", "alpha")]
@@ -212,11 +286,14 @@ def main(argv=None) -> int:
                                            dp["depth"]),
         "pack_features+gather": lambda: tiled.pack_features(
             dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])[bins_p["inst_splat"].long()],
-        "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p),
+        "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p,
+                                                 checkpoints=True),
+        "composite_fwd without checkpoints (as served)": lambda: C.composite_fwd(
+            inst_p, start_p, nblk_p, tgrid, order_p),
         "assemble+loss": lambda: loss_of(out_p.detach()),
         "backward/assemble+loss": lambda: torch.autograd.grad(loss_of(out_leaf), out_leaf),
         "backward/composite_bwd": lambda: C.composite_bwd(
-            inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, order_p),
+            inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, seg_p),
         "backward/per_splat_sums": lambda: C.per_splat_sums(
             d_inst, bins_p["inst_splat"], bins_p["seg_offs"], bins_p["seg_cnt"], tgrid),
         "backward/pack_features+prepare_splats": lambda: torch.autograd.grad(
@@ -225,13 +302,27 @@ def main(argv=None) -> int:
         "pack_features forward+backward alone, stacked variant": pack_stacked_fwd_bwd,
         "adam_step": adam_step,
     }
+    # the chains: how uneven they are, how many (row, warp) pairs the backward
+    # really has to work on, and what the deep tiles cost it
+    shallow = torch.where(nblk_p <= 16, nblk_p, 0)
+    out_s, seg_s = C.composite_fwd(inst_p, start_p, shallow, tgrid, order_p, checkpoints=True)
+    chains = {
+        "tile_nblk": _depth_histogram(nblk_p),
+        "touched_row_warp_pairs": touched_shares(inst_p, start_p, nblk_p, tgrid),
+        "composite_bwd_ms": {
+            "all_tiles": _event_ms(train_phases["backward/composite_bwd"], args.iters),
+            "tiles_of_at_most_16_blocks": _event_ms(lambda: C.composite_bwd(
+                inst_p, start_p, shallow, out_s, dout, tgrid, seg_s), args.iters),
+            "share_of_live_slots_in_those_tiles": int(shallow.sum()) / max(int(nblk_p.sum()), 1)},
+    }
+    del out_s, seg_s
     train_phases_ms = {k: _event_ms(fn, args.iters) for k, fn in train_phases.items()}
     # "assemble+loss" is inside "backward/assemble+loss" (grad needs a forward)
     train_phases_ms["backward/assemble+loss"] -= train_phases_ms["assemble+loss"]
-    del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf
+    del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf, seg_p
     train_result = {
         "step_ms": step_ms, "views_per_step": 1, "phases_ms": train_phases_ms,
-        "kernel_launches_per_step": launches_per_step,
+        "kernel_launches_per_step": launches_per_step, "chains": chains,
         **_profile(lambda: train.train_step(params, opt, cam, target, tcfg), 3, step_ms)}
 
     result = {

@@ -12,7 +12,19 @@ the port multiplies (1 - w) factors and sums with cumsum/einsum, so rounding
 and summation order differ. Blocks that the early stop skips, and blocks no
 tile owns, are exactly zero on both sides; splats with no instance get an
 exactly zero gradient row on both sides.
+
+The CUDA kernel does not walk a tile's chain in one piece: it cuts it into
+segments of SEGMENT_BLOCKS blocks and starts each from a checkpoint (colour so
+far, T) that the forward leaves. What it relies on is tested here in plain
+PyTorch on hand-made chains (no JAX needed): the numbering of the segments,
+the checkpoints and walked-block counts as a by-product of composite_fwd_plain,
+and that a backward assembled from per-segment replays started at those
+checkpoints equals composite_bwd_plain within 1e-6 of each column's largest
+magnitude (the only difference: S at a segment's start is dRGB . colour so far
+instead of the running sum, float association).
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -193,3 +205,173 @@ def test_composite_bwd_rejects_bad_arguments():
     with pytest.raises(ValueError, match="out_res"):
         tc.composite_bwd(inst, start, start, rows.double(), rows, grid)
     assert tc.NUM_GRAD_COLS == jc.NUM_GRAD_COLS == 9
+
+
+# ---- the segments the CUDA kernel works by, in plain PyTorch on hand-made chains
+
+K = tc.SEGMENT_BLOCKS
+# blocks per tile: none, one, around one segment, and three tiles of three
+# segments that an opaque wall (CHAIN_WALLS: tile -> block the wall fills) cuts
+# short under an early stop: before the first segment ends, exactly at a
+# segment boundary, and inside the second segment
+CHAIN_DEPTHS = [0, 1, K - 1, K, K + 1, 3 * K, 3 * K, 3 * K, 3 * K]
+CHAIN_WALLS = {6: 2, 7: K - 1, 8: K + 2}
+CHAIN_TS, CHAIN_BLOCK = 8, 4
+
+
+@pytest.fixture(scope="module")
+def chains():
+    """A one-row image of len(CHAIN_DEPTHS) tiles whose instance buffer is
+    filled by hand: random splats near each tile's centre, CHAIN_DEPTHS blocks
+    per tile, null rows elsewhere."""
+    rng = np.random.default_rng(3)
+    nt = len(CHAIN_DEPTHS)
+    grid = tb.TileGrid.create(width=nt * CHAIN_TS, height=CHAIN_TS, num_splats=1,
+                              tile_size=CHAIN_TS, block=CHAIN_BLOCK)
+    inst = np.zeros((grid.mcap, tc.NUM_FEATS), np.float32)
+    inst[:, tc.F_LNA] = tc.NULL_LN_ALPHA
+    nblk = np.asarray(CHAIN_DEPTHS, np.int32)
+    start = (np.cumsum(nblk) - nblk).astype(np.int32)
+    for t in range(nt):
+        r0, r1 = start[t] * CHAIN_BLOCK, (start[t] + nblk[t]) * CHAIN_BLOCK
+        n = r1 - r0
+        centre = np.asarray([t * CHAIN_TS + CHAIN_TS / 2, CHAIN_TS / 2], np.float32)
+        inst[r0:r1, 0:2] = centre + rng.uniform(-5, 5, (n, 2))
+        inst[r0:r1, tc.F_QA] = -rng.uniform(0.02, 0.2, n)
+        inst[r0:r1, tc.F_QB] = rng.uniform(-0.02, 0.02, n)
+        inst[r0:r1, tc.F_QC] = -rng.uniform(0.02, 0.2, n)
+        inst[r0:r1, tc.F_LNA] = np.log(rng.uniform(0.01, 0.08, n))
+        inst[r0:r1, tc.F_R:tc.F_B + 1] = rng.uniform(0, 1, (n, 3))
+        if t in CHAIN_WALLS:  # four flat splats of opacity 0.9: T falls by 1e-4 everywhere
+            w0 = r0 + CHAIN_WALLS[t] * CHAIN_BLOCK
+            inst[w0:w0 + CHAIN_BLOCK, tc.F_QA:tc.F_QC + 1] = [-1e-9, 0.0, -1e-9]
+            inst[w0:w0 + CHAIN_BLOCK, tc.F_LNA] = np.log(0.9)
+    dout = rng.standard_normal((nt, tc.OUT_ROWS, grid.tile_pixels)).astype(np.float32)
+    return {"grid": grid, "inst": _t(inst), "start": _t(start), "nblk": _t(nblk),
+            "dout": _t(dout)}
+
+
+def _walked_expected(early_stop_eps):
+    walked = list(CHAIN_DEPTHS)
+    if early_stop_eps > 0.0:
+        for t, b in CHAIN_WALLS.items():
+            walked[t] = b + 1  # the block after the wall is the first one skipped
+    return walked
+
+
+def _segments_by_hand(nblk):
+    """Every (tile, first block) pair a chain list has, in tile order."""
+    return [(t, j * K) for t, n in enumerate(nblk) for j in range(-(-int(n) // K))]
+
+
+def test_segment_table_on_chains(chains):
+    """Every segment of every chain has a number of its own below the static
+    cap, in tile order, and the numbers in between belong to no segment."""
+    grid, start, nblk = chains["grid"], chains["start"], chains["nblk"]
+    seg0 = tc.first_segments(start)
+    seg_tile, seg_blk0, live = tc.segment_table(start, nblk, grid)
+    cap = tc.num_segments_cap(grid)
+    assert seg_tile.shape == seg_blk0.shape == live.shape == (cap,)
+    assert all(a.dtype == torch.int32 for a in (seg0, seg_tile, seg_blk0))
+    assert seg0.tolist() == [int(start[t]) // K + t for t in range(grid.num_tiles)]
+    want = _segments_by_hand(CHAIN_DEPTHS)
+    assert len(want) == 17 == int(live.sum())
+    assert list(zip(seg_tile[live].tolist(), seg_blk0[live].tolist())) == want
+    # segment j of tile t sits at number seg0[t] + j
+    for t, blk0 in want:
+        s = int(seg0[t]) + blk0 // K
+        assert bool(live[s]) and int(seg_tile[s]) == t and int(seg_blk0[s]) == blk0
+
+
+@pytest.mark.parametrize("fill", ["ones", "one_deep", "random", "k_plus_one"])
+def test_segment_count_never_exceeds_the_static_cap(fill):
+    """Whatever way the buffer's blocks are dealt to the tiles, every segment
+    gets a number of its own below num_segments_cap."""
+    grid = tb.TileGrid.create(width=96, height=64, num_splats=40, tile_size=16, block=8,
+                              max_instance_mult=4.0)
+    nt, nb = grid.num_tiles, grid.num_blocks
+    if fill == "ones":
+        nblk = np.ones(nt, np.int64)
+    elif fill == "one_deep":  # the last tile holds every block: the largest number there is
+        nblk = np.zeros(nt, np.int64)
+        nblk[-1] = nb
+    elif fill == "k_plus_one":  # the most segments per block: K + 1 blocks make two
+        nblk = np.zeros(nt, np.int64)
+        nblk[:nb // (K + 1)] = K + 1
+    else:
+        nblk = np.random.default_rng(0).multinomial(nb, np.ones(nt) / nt)
+    assert nblk.sum() <= nb
+    nblk_t = _t(nblk.astype(np.int32))
+    start = torch.cumsum(nblk_t, 0, dtype=torch.int32) - nblk_t
+    seg_tile, seg_blk0, live = tc.segment_table(start, nblk_t, grid)
+    want = _segments_by_hand(nblk)
+    assert len(want) == int(live.sum()) <= tc.num_segments_cap(grid)
+    assert list(zip(seg_tile[live].tolist(), seg_blk0[live].tolist())) == want
+    last = int(tc.first_segments(start)[-1]) + -(-int(nblk[-1]) // K) - 1
+    assert last < tc.num_segments_cap(grid)
+
+
+@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-2], ids=["exact", "eps1e-2"])
+def test_forward_checkpoints_are_the_state_before_each_segment(chains, early_stop_eps):
+    grid = dataclasses.replace(chains["grid"], early_stop_eps=early_stop_eps)
+    inst, start, nblk = chains["inst"], chains["start"], chains["nblk"]
+    out, seg = tc.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+    assert torch.equal(out, tc.composite_fwd(inst, start, nblk, grid))
+    assert seg.walked.tolist() == _walked_expected(early_stop_eps)
+    seg0 = tc.first_segments(start)
+    checked = 0
+    for j in range(3):
+        # the forward over the first j segments of every chain
+        head = tc.composite_fwd_plain(inst, start, torch.clamp_max(nblk, j * K), grid)
+        for t in range(grid.num_tiles):
+            if int(seg.walked[t]) > j * K:  # the forward reached segment j of tile t
+                ck = seg.ckpt[int(seg0[t]) + j]
+                assert torch.equal(ck[:3], head[t, :3]) and torch.equal(ck[3], head[t, 4])
+                checked += 1
+    assert checked == (17 if early_stop_eps == 0.0 else 12)
+
+
+def _bwd_from_segments(case, out, seg, grid):
+    """The backward as the kernel computes it: every segment on its own, T
+    from its checkpoint and S = dRGB . (colour so far), over the blocks the
+    forward walked, with no early-stop test of its own."""
+    inst, start, dout = case["inst"], case["start"], case["dout"]
+    no_stop = dataclasses.replace(grid, early_stop_eps=0.0)
+    total = torch.zeros((tc.NUM_GRAD_COLS, grid.mcap))
+    seg0 = tc.first_segments(start)
+    for j in range(int(seg.walked.max() + K - 1) // K):
+        ck = seg.ckpt[(seg0 + j).clamp_max(seg.ckpt.shape[0] - 1).long()]  # [T, 4, P]
+        state = (ck[:, 3], (dout[:, :3] * ck[:, :3]).sum(dim=1))
+        cols = tc.composite_bwd_plain(inst, start + j * K, torch.clamp(seg.walked - j * K, 0, K),
+                                      out, dout, no_stop, state=state)
+        assert (total[:, (cols != 0).any(dim=0)] == 0).all()  # segments own disjoint rows
+        total += cols
+    return total
+
+
+@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-2], ids=["exact", "eps1e-2"])
+def test_backward_from_segment_checkpoints_equals_whole_chains(chains, early_stop_eps):
+    grid = dataclasses.replace(chains["grid"], early_stop_eps=early_stop_eps)
+    inst, start, nblk, dout = (chains[k] for k in ("inst", "start", "nblk", "dout"))
+    out, seg = tc.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+    want = tc.composite_bwd(inst, start, nblk, out, dout, grid)
+    got = _bwd_from_segments(chains, out, seg, grid)
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert float(scale.min()) > 0.1
+    assert float(((got - want).abs() / scale).max()) <= 1e-6
+    # rows of blocks the forward skipped are exactly zero both ways; walked ones are not
+    rows_walked = torch.zeros(grid.mcap, dtype=torch.bool)
+    for t, n in enumerate(_walked_expected(early_stop_eps)):
+        rows_walked[int(start[t]) * CHAIN_BLOCK:(int(start[t]) + n) * CHAIN_BLOCK] = True
+    assert (got[:, ~rows_walked] == 0).all() and (want[:, ~rows_walked] == 0).all()
+    assert (got[:, rows_walked] != 0).any(dim=0).float().mean() > 0.9
+
+
+def test_composite_bwd_ignores_segments_on_the_cpu(chains):
+    """The plain version walks whole chains: with or without the forward's
+    segments the CPU result is the same."""
+    grid = chains["grid"]
+    inst, start, nblk, dout = (chains[k] for k in ("inst", "start", "nblk", "dout"))
+    out, seg = tc.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+    assert torch.equal(tc.composite_bwd(inst, start, nblk, out, dout, grid, seg),
+                       tc.composite_bwd(inst, start, nblk, out, dout, grid))
