@@ -6,12 +6,15 @@ needs no network. It
 
 1. checks for a CUDA device (exits 1 without one, printing no result);
 2. builds the CUDA kernels from splatapult_tpu_torch/kernels/csrc/;
-3. holds each kernel against its plain PyTorch version on the card — on
+3. holds each kernel against its plain PyTorch version on the card — the
+   composite forward's two kernels (segment pass, combine) each against its
+   own plain version and together against the plain serial walk — on
    mid-size cases (40k-splat garden, interleaved row ownership, capacity
    overflow, early stop; hand-made chains of 0, 1, K-1, K, K+1, 2K, 2K+1 and
-   3K blocks for the K-block segments the composite backward works by, with
-   an early stop before the first segment ends, at a segment boundary and
-   inside a later segment) and at the shapes the full-size render gives it,
+   3K blocks for the K-block segments the composite kernels work by, with
+   an early stop before the first segment ends, at a segment boundary, inside
+   a later segment and inside the last one, and a wall on a chain's last
+   block that stops nothing) and at the shapes the full-size render gives it,
    where it also times kernel, plain version, and the nearest single library
    call, and computes the roofline bound from that run's inputs (for the
    composite kernels: from the (slot, pixel) pairs above the alpha discard
@@ -27,7 +30,7 @@ needs no network. It
    splatapult_tpu_torch.train.fit_scene (a few steps with a per-step callback,
    a few in the chunked loop), launch counters zeroed just before; losses
    must be finite and fall, every parameter's gradient finite and non-zero,
-   and each of the three kernels launched views x steps times;
+   and each of the four kernels launched views x steps times;
 6. checks the output: finite, the expected shape, agreeing with the
    JAX-made golden images under tests/golden/ on the two small scenes, the
    GPU render agreeing with the port's CPU render, and exactly zero alpha for
@@ -55,7 +58,12 @@ The forward's segment checkpoints (colour so far and T of every pixel at each
 segment's first block) are held to the composite_fwd tolerance, against the
 plain version's own checkpoints and, on the mid-size cases, against the plain
 forward run on the first j segments of every tile; the walked-block counts
-must be equal. Goldens: atol 3e-3 (they are stored as float16).
+must be equal. The forward's two passes one at a time, to the same
+tolerance: the segment kernel's locals against composite_fwd_segments_plain,
+and the combine kernel's rows, checkpoints and walked-block counts against
+combine_segments_plain fed the kernel's own locals. Two runs on the same
+inputs must give the same bits. Goldens: atol 3e-3 (they are stored as
+float16).
 """
 
 from __future__ import annotations
@@ -78,6 +86,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_SPLATS, FULL_W, FULL_H = 1_500_000, 1920, 1080
+# a kernel of the kernels line -> the launch counters of its wrapper(s)
+KERNEL_COUNTERS = {"expand_fill": ("expand_fill",),
+                   "composite_fwd": ("composite_fwd_segments", "composite_fwd_combine"),
+                   "composite_bwd": ("composite_bwd",)}
 N_RENDERS = 5
 TRAIN_VIEWS, TRAIN_STEPS_CALLBACK, TRAIN_STEPS_CHUNKED = 2, 4, 4
 
@@ -217,17 +229,58 @@ def main() -> int:
         walked (it wrote their checkpoints, the backward walks them)."""
         return C.segment_table(start, seg.walked, grid)[2]
 
+    def check_fwd_passes(inst, start, nblk, grid, what):
+        """The composite forward's two kernels one at a time: the segment
+        kernel's locals against the plain segment pass, the combine kernel's
+        rows, checkpoints and walked-block counts against the plain combine
+        fed the kernel's own locals -> their max abs errors."""
+        live = C.segment_table(start, nblk, grid)[2]
+        locs = C.composite_fwd_segments(inst, start, nblk, grid)
+        ref_locs = C.composite_fwd_segments_plain(inst, start, nblk, grid)
+        torch.cuda.synchronize()
+        errs = {}
+        if bool(live.any()):
+            errs["segments_max_abs_err"] = composite_close(
+                locs[live], ref_locs[live], f"composite_fwd_segments ({what})")
+        del ref_locs
+        ref_out, ref_seg = C.combine_segments_plain(locs.clone(), inst, start, nblk, grid,
+                                                    checkpoints=True)
+        out, seg = C.combine_segments(locs, inst, start, nblk, grid, checkpoints=True)
+        torch.cuda.synchronize()
+        if not torch.equal(seg.walked, ref_seg.walked):
+            raise AssertionError(f"combine_segments ({what}): walked differs from the plain "
+                                 f"version's")
+        errs["combine_max_abs_err"] = composite_close(out, ref_out, f"combine_segments ({what})")
+        if bool(live.any()):
+            errs["combine_checkpoints_max_abs_err"] = composite_close(
+                seg.ckpt[live], ref_seg.ckpt[live], f"combine_segments ({what}): checkpoints")
+        return errs
+
+    def same_twice(inst, start, nblk, grid, out, seg, what):
+        """A second run of the forward on the same inputs gives the same bits:
+        rows, walked-block counts, and the checkpoint (or local) of every
+        segment of every chain."""
+        live = C.segment_table(start, nblk, grid)[2]
+        out2, seg2 = C.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(seg.walked, seg2.walked)
+                and torch.equal(seg.ckpt[live], seg2.ckpt[live])):
+            raise AssertionError(f"{what} differs between two runs on the same inputs")
+
     def check_composite(inst, start, nblk, grid, what):
-        """Both composite kernels, and the checkpoints between them, against
-        their plain versions on one instance buffer."""
+        """Both composite forward kernels, the backward kernel, and the
+        checkpoints between them, against their plain versions on one
+        instance buffer."""
         out, seg = C.composite_fwd(inst, start, nblk, grid, checkpoints=True)
         ref, ref_seg = C.composite_fwd_plain(inst, start, nblk, grid, checkpoints=True)
         torch.cuda.synchronize()
         if not torch.equal(out, C.composite_fwd(inst, start, nblk, grid)):
             raise AssertionError(f"composite_fwd ({what}): storing checkpoints changed the rows")
+        same_twice(inst, start, nblk, grid, out, seg, f"composite_fwd ({what})")
         err = composite_close(out, ref, f"composite_fwd ({what})")
         n_seg, ck_err = checkpoints_close(seg, ref_seg, segments_reached(start, seg, grid),
                                           f"composite_fwd ({what})")
+        passes = check_fwd_passes(inst, start, nblk, grid, what)
         seg0 = C.first_segments(start)
         # the first segments' checkpoints once more, against the plain forward
         # cut off after j segments of every tile
@@ -247,8 +300,8 @@ def main() -> int:
         return {"case": what, "mcap": grid.mcap, "segments_reached": n_seg,
                 "deepest_tile_blocks": int(nblk.max()),
                 "tiles_stopped_early": int((seg.walked < nblk).sum()),
-                "composite_max_abs_err": err, "checkpoints_max_abs_err": ck_err,
-                "composite_bwd_max_scaled_err": b_err}
+                "composite_max_abs_err": err, "checkpoints_max_abs_err": ck_err, **passes,
+                "composite_bwd_max_scaled_err": b_err}, seg.walked
 
     def check_pair(scene, cam, cfg, what, row_stride=1, row_offset=None):
         grid, table, bins, inst, start, nblk = kernel_inputs(
@@ -260,17 +313,20 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"expand_fill != plain version ({what})")
-        return {**check_composite(inst, start, nblk, grid, what), "emax": grid.emax,
+        return {**check_composite(inst, start, nblk, grid, what)[0], "emax": grid.emax,
                 "culled": int(bins["num_culled_instances"])}
 
     def check_chains(early_stop_eps, tile_size, block):
         """Hand-made chains: tiles of exactly 0, 1, K-1, K, K+1, 2K, 2K+1 and
-        3K blocks of random splats near the tile's centre; in three of the
+        3K blocks of random splats near the tile's centre; in five of the
         3K-block tiles one block of flat, nearly opaque splats ends the tile
         under an early stop before its first segment ends (block 2), at a
-        segment boundary (block K-1) and inside the second segment (K+2)."""
-        depths = [0, 1, K - 1, K, K + 1, 2 * K, 2 * K + 1, 3 * K, 3 * K, 3 * K, 3 * K]
-        walls = {8: 2, 9: K - 1, 10: K + 2}
+        segment boundary (block K-1), inside the second segment (K+2) and
+        inside the last one (2K+3); the fifth fills the chain's last block,
+        where T falls under eps only after the chain ends: no block is
+        skipped, and the combine walks that last segment again to find out."""
+        depths = [0, 1, K - 1, K, K + 1, 2 * K, 2 * K + 1] + [3 * K] * 6
+        walls = {8: 2, 9: K - 1, 10: K + 2, 11: 2 * K + 3, 12: 3 * K - 1}
         rows = sum(depths) * block
         grid = B.TileGrid.create(width=len(depths) * tile_size, height=tile_size, num_splats=1,
                                  tile_size=tile_size, block=block, max_instance_mult=rows,
@@ -298,13 +354,15 @@ def main() -> int:
                 w0 = r0 + walls[t] * block
                 inst[w0:w0 + block, C.F_QA:C.F_QC + 1] = [-1e-9, 0.0, -1e-9]
                 inst[w0:w0 + block, C.F_LNA] = np.log(0.9)
-        res = check_composite(
+        res, walked = check_composite(
             torch.from_numpy(inst).to(dev), torch.from_numpy(start).to(dev),
             torch.from_numpy(nblk).to(dev), grid,
             f"chains of {depths} blocks, tile {tile_size} block {block} eps {early_stop_eps}")
-        stopped = len(walls) if early_stop_eps > 0.0 else 0
-        if res["tiles_stopped_early"] < stopped:
-            raise AssertionError(f"{res['case']}: {res['tiles_stopped_early']} tiles stopped early")
+        # the block after a wall is the first one skipped, if there is one
+        want = [min(walls[t] + 1, d) if t in walls and early_stop_eps > 0.0 else d
+                for t, d in enumerate(depths)]
+        if walked.tolist() != want:
+            raise AssertionError(f"{res['case']}: walked {walked.tolist()}, expected {want}")
         return res
 
     # ---- phase 3a: kernels against their plain versions, mid-size cases
@@ -361,7 +419,8 @@ def main() -> int:
         frame_ms.append(start_ev.elapsed_time(end_ev))
     launches = dict(kernels.LAUNCH_COUNTS)
     peak_bytes = torch.cuda.max_memory_allocated()
-    want_launches = {"expand_fill": N_RENDERS, "composite_fwd": N_RENDERS, "composite_bwd": 0}
+    want_launches = {"expand_fill": N_RENDERS, "composite_fwd_segments": N_RENDERS,
+                     "composite_fwd_combine": N_RENDERS, "composite_bwd": 0}
     if launches != want_launches:
         raise AssertionError(
             f"kernel launches in {N_RENDERS} renders: {launches}, expected {want_launches}")
@@ -389,12 +448,14 @@ def main() -> int:
     out, seg = C.composite_fwd(inst, tstart, nblk, grid, checkpoints=True)
     if not torch.equal(out, C.composite_fwd(inst, tstart, nblk, grid)):
         raise AssertionError("composite_fwd: storing checkpoints changed the rows at full size")
+    same_twice(inst, tstart, nblk, grid, out, seg, "composite_fwd at full size")
     ref, ref_seg = C.composite_fwd_plain(inst, tstart, nblk, grid, checkpoints=True)
     torch.cuda.synchronize()
     c_err = composite_close(out, ref, "composite_fwd at full size")
     live_segments, ck_err = checkpoints_close(seg, ref_seg, segments_reached(tstart, seg, grid),
                                               "composite_fwd at full size")
     del ref, ref_seg
+    c_pass_errs = check_fwd_passes(inst, tstart, nblk, grid, "full size")
     dout = seeded_cotangent(out)
     d_inst = C.composite_bwd(inst, tstart, nblk, out, dout, grid, seg)
     b_plain, d_ref = event_ms_once(
@@ -410,6 +471,15 @@ def main() -> int:
     e_lib = event_ms(lambda: torch.searchsorted(table["ends"], slots, right=True), 20)
     c_ms = event_ms(lambda: C.composite_fwd(inst, tstart, nblk, grid), 10)
     c_ckpt_ms = event_ms(lambda: C.composite_fwd(inst, tstart, nblk, grid, checkpoints=True), 10)
+    # each launch of the forward alone (the combine as served: it leaves its
+    # input as it found it)
+    c_locs = C.composite_fwd_segments(inst, tstart, nblk, grid)
+    c_by_launch = {
+        "composite_fwd_segments_kernel": event_ms(
+            lambda: C.composite_fwd_segments(inst, tstart, nblk, grid), 10),
+        "composite_fwd_combine_kernel": event_ms(
+            lambda: C.combine_segments(c_locs, inst, tstart, nblk, grid), 10)}
+    del c_locs
     c_plain = event_ms(lambda: C.composite_fwd_plain(inst, tstart, nblk, grid), 1, warmup=0)
     b_ms = event_ms(lambda: C.composite_bwd(inst, tstart, nblk, out, dout, grid, seg), 10)
 
@@ -460,6 +530,8 @@ def main() -> int:
     pairs_shape = {"slot_pixel_pairs": live_slots * p, "pairs_above_discard": pairs_above,
                    "share_above_discard": pairs_above / max(live_slots * p, 1),
                    "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]}
+    # (the forward's locals, written and read once between its two kernels,
+    # are the design's traffic, not the function's: they stay out of it)
     c_bytes = 64 * live_slots + 32 * grid.num_tiles * p + 8 * grid.num_tiles
     c_flop = 2 * 15 * pairs_above + 2 * 25 * live_slots
     c_bound_b = c_bytes / HBM_BYTES_PER_S * 1e3
@@ -485,15 +557,19 @@ def main() -> int:
         {"name": "composite_fwd", "route": "cuda",
          "source": "splatapult_tpu_torch/kernels/csrc/composite_fwd.cu",
          "replaces": "splatapult_tpu/ops/composite.py:532",
-         "launches": launches["composite_fwd"], "max_abs_err": c_err,
-         "ms": c_ms, "ms_storing_checkpoints": c_ckpt_ms,
-         "checkpoints_max_abs_err": ck_err, "plain_ms": c_plain,
+         "launches": None,  # both kernels' launches: filled in below
+         "max_abs_err": c_err,
+         "ms": c_ms, "ms_by_launch": c_by_launch, "ms_storing_checkpoints": c_ckpt_ms,
+         "checkpoints_max_abs_err": ck_err, **c_pass_errs, "plain_ms": c_plain,
          "bound_ms": max(c_bound_b, c_bound_o),
          "bound_by": "bytes" if c_bound_b >= c_bound_o else "operations",
          "library_ms": None,
          "shape": {"mcap": grid.mcap, "live_slots": live_slots,
                    "tiles": grid.num_tiles, "tile_pixels": p,
-                   "max_blocks_in_a_tile": int(nblk.max()), **pairs_shape}},
+                   "max_blocks_in_a_tile": int(nblk.max()), **pairs_shape,
+                   "segment_blocks": K, "segments": int(C.segment_table(tstart, nblk, grid)[2].sum()),
+                   "segment_ctas_launched": C.num_segments_cap(grid),
+                   "segment_scratch_bytes": 16 * C.num_segments_cap(grid) * p}},
         {"name": "composite_bwd", "route": "cuda",
          "source": "splatapult_tpu_torch/kernels/csrc/composite_bwd.cu",
          "replaces": "splatapult_tpu/ops/composite.py:581",
@@ -515,7 +591,7 @@ def main() -> int:
           "emax": grid.emax, "mcap": grid.mcap, "instances": total,
           "ms_per_frame_median": statistics.median(frame_ms), "ms_per_frame_all": frame_ms,
           "pixels_per_s": FULL_W * FULL_H / (statistics.median(frame_ms) * 1e-3),
-          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms,
+          "kernel_ms": {"expand_fill": e_ms, "composite_fwd": c_ms, **c_by_launch,
                         "composite_fwd_storing_checkpoints": c_ckpt_ms, "composite_bwd": b_ms},
           "tail_ms": {"per_splat_sums": tail_ms, "index_add_": scatter_ms},
           "tail_max_scaled_err_vs_float64": {"per_splat_sums": tail_err,
@@ -587,8 +663,10 @@ def main() -> int:
     if train_culled != 0:
         raise AssertionError(f"train_full: {train_culled} culled instances")
     for row in kernel_rows:
-        row["launches_by_path"] = {"render_full": launches[row["name"]],
-                                   "train_full": train_launches[row["name"]]}
+        row["launches_by_path"] = {
+            path: sum(counts[c] for c in KERNEL_COUNTERS[row["name"]])
+            for path, counts in (("render_full", launches), ("train_full", train_launches))}
+    kernel_rows[1]["launches"] = kernel_rows[1]["launches_by_path"]["render_full"]
     kernel_rows[2]["launches"] = train_launches["composite_bwd"]
     emit({"phase": "train_full", "splats": n, "views": TRAIN_VIEWS, "width": FULL_W,
           "height": FULL_H, "profile": R.profile_name(train_cfg),

@@ -13,7 +13,8 @@ really went through the kernels.
 
 from __future__ import annotations
 
-LAUNCH_COUNTS = {"expand_fill": 0, "composite_fwd": 0, "composite_bwd": 0}
+LAUNCH_COUNTS = {"expand_fill": 0, "composite_fwd_segments": 0, "composite_fwd_combine": 0,
+                 "composite_bwd": 0}
 
 
 def reset_launch_counts() -> None:

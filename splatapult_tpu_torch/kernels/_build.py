@@ -32,11 +32,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # ends, tile0, nx, dbits, out, n, emax, row_step, stream
     "splat_expand_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # inst, tile_start, tile_nblk, tile_order, out, ckpt, tile_walked,
+    # inst, tile_start, tile_nblk, locs, num_segments, seg_blocks, num_tiles,
+    # tiles_x, tile_size, height, block, ln_cutoff, use_cutoff, stream
+    "splat_composite_fwd_segments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                     _P],
+    # inst, tile_start, tile_nblk, locs, out, tile_walked, store_prefix,
     # seg_blocks, num_tiles, tiles_x, tile_size, height, block, ln_cutoff,
     # use_cutoff, early_stop_eps, stream
-    "splat_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _F, _P],
+    "splat_composite_fwd_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _I, _F, _P],
     # inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst,
     # num_segments, seg_blocks, num_tiles, mcap, tiles_x, tile_size, height,
     # block, ln_cutoff, use_cutoff, stream

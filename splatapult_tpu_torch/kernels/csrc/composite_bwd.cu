@@ -67,9 +67,10 @@
 //     buffers, the next sub-chunk while this one is walked;
 //   - per sub-chunk every warp first makes its list of rows: lane r takes row
 //     r and asks whether its gaussian can exceed the discard anywhere in the
-//     rectangle of the warp's pixel centres (row_may_touch: the exact maximum
-//     of the exponent over the rectangle, about 50 instructions once per
-//     lane), and a ballot is the list. The warp then walks only the listed
+//     rectangle of the warp's pixel centres (row_may_touch in row_cull.cuh,
+//     shared with the forward: the exact maximum of the exponent over the
+//     rectangle, about 50 instructions once per lane), and a ballot is the
+//     list. The warp then walks only the listed
 //     rows; the others cost it nothing;
 //   - a listed row gets the full arithmetic in every lane (lanes below the
 //     discard carry w = 0 and add zeros), and the warp reduces its nine
@@ -110,6 +111,7 @@
 
 #include <cuda_runtime.h>
 
+#include "row_cull.cuh"
 #include "segments.cuh"
 #include "warp_search.cuh"
 
@@ -143,37 +145,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Barrier among the first `count` threads of the CTA (a multiple of 32).
 __device__ __forceinline__ void sum_threads_barrier(int count) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(count) : "memory");
-}
-
-// Can the gaussian of one instance row put a weight above the discard on any
-// pixel centre inside the rectangle [xlo, xhi] x [ylo, yhi]? Conservative:
-// "no" is certain, "yes" means decide per pixel. For a gaussian the exponent
-// qh is a concave quadratic around the mean, so its largest value over the
-// rectangle is ln_alpha if the mean lies inside, and otherwise is taken on one
-// of the four edges, where it is a parabola in one variable: its vertex,
-// clamped to the edge (found with the fast division: near its vertex a
-// parabola does not feel a last-bit error of the position). The row is ruled
-// out when that largest value stays 0.01 below the discard (the margin covers
-// the rounding of both sides). A row whose form is not concave (or holds a
-// NaN) is never ruled out here.
-__device__ __forceinline__ float edge_max(float q_fixed, float q_cross, float q_free,
-                                          float fixed, float lo, float hi) {
-  // max over s in [lo, hi] of q_fixed * fixed^2 + q_cross * fixed * s + q_free * s^2
-  const float s = fminf(fmaxf(__fdividef(-0.5f * q_cross * fixed, q_free), lo), hi);
-  return q_fixed * fixed * fixed + (q_cross * fixed + q_free * s) * s;
-}
-
-__device__ __forceinline__ bool row_may_touch(float mx, float my, float qa, float qb,
-                                              float qc, float lna, float ln_cutoff,
-                                              float xlo, float xhi, float ylo, float yhi) {
-  if (!(qa <= 0.0f && qc <= 0.0f && 4.0f * qa * qc >= qb * qb)) return true;
-  const float x0 = xlo - mx, x1 = xhi - mx, y0 = ylo - my, y1 = yhi - my;
-  float qmax = 0.0f;
-  if (!(x0 <= 0.0f && x1 >= 0.0f && y0 <= 0.0f && y1 >= 0.0f)) {
-    qmax = fmaxf(fmaxf(edge_max(qa, qb, qc, x0, y0, y1), edge_max(qa, qb, qc, x1, y0, y1)),
-                 fmaxf(edge_max(qc, qb, qa, y0, x0, x1), edge_max(qc, qb, qa, y1, x0, x1)));
-  }
-  return !(qmax + lna <= ln_cutoff - 0.01f);
 }
 
 // Sums of nine per-lane values over the warp. The first eight are reduced
@@ -248,11 +219,7 @@ composite_bwd_kernel(const float* __restrict__ inst,
   float* const sums = part + 2 * nwarps * kSlotFloats;  // [kSlotFloats]
 
   // this thread's pixel of the tile (row-major index p)
-  int p = tid;
-  if (kPatchWarps && (tile_size & 7) == 0) {
-    const int across = tile_size >> 3;  // patches per tile row
-    p = ((warp / across) * 4 + (lane >> 3)) * tile_size + (warp % across) * 8 + (lane & 7);
-  }
+  const int p = kPatchWarps ? patch_pixel(tid, tile_size) : tid;
   const bool has_pixel = p < npix;
 
   // tile-local offsets and pixel centre, as in the forward
@@ -350,15 +317,8 @@ composite_bwd_kernel(const float* __restrict__ inst,
       // against the warp's rectangle of pixel centres, the ballot is the list
       unsigned cand;
       {
-        float xlo = has_pixel ? px : 3e38f, xhi = has_pixel ? px : -3e38f;
-        float ylo = has_pixel ? py : 3e38f, yhi = has_pixel ? py : -3e38f;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          xlo = fminf(xlo, __shfl_xor_sync(kFullMask, xlo, off));
-          xhi = fmaxf(xhi, __shfl_xor_sync(kFullMask, xhi, off));
-          ylo = fminf(ylo, __shfl_xor_sync(kFullMask, ylo, off));
-          yhi = fmaxf(yhi, __shfl_xor_sync(kFullMask, yhi, off));
-        }
+        float xlo, xhi, ylo, yhi;
+        warp_rect(px, py, has_pixel, xlo, xhi, ylo, yhi);
         bool maybe = lane < nrows;
         if (maybe && use_cutoff) {
           const float* f = rb + lane * kNumFeats;

@@ -28,17 +28,23 @@ Layouts (B = block, P = tile_size^2 pixels):
   instance gradients [9, Mcap] f32, rows: d_mean_x, d_mean_y, d_qa, d_qb,
                      d_qc, d_ln_alpha, d_r, d_g, d_b (instance order)
 
+A tile's chain is cut into segments of SEGMENT_BLOCKS blocks
+(first_segments). The forward runs in two kernels: every segment walked on
+its own from colour 0 and T = 1 gives a "local" (colour, T)
+(composite_fwd_segments), and one pass per tile scans the locals in order,
+C += T * c, T *= t, into the rows (combine_segments); in training that scan
+leaves the state before every segment, its checkpoint (Segments), and decides
+the early stop.
+
 Backward: the transmittance-replay kernel re-walks each tile front to back
 and emits nine gradient columns per instance; a sort-and-difference tail
-(per_splat_sums) turns them into per-splat feature gradients. A tile's chain
-is cut into segments of SEGMENT_BLOCKS blocks: the forward leaves a checkpoint
-(colour so far, T) at every segment's first block, and the backward kernel
-walks each segment in a CTA of its own, started from its checkpoint
-(first_segments, Segments).
+(per_splat_sums) turns them into per-splat feature gradients. The backward
+kernel walks each segment in a CTA of its own, started from its checkpoint.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -176,9 +182,11 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid, checkpoints
     (checkpoints of segments the forward did not reach are zero here,
     unwritten there).
 
-    The same per-block arithmetic as the kernel, looping over block rank
-    within tile so that all tiles advance together; the within-block
-    front-to-back products are an exclusive cumprod along the instance axis.
+    The serial walk of every tile's whole chain, looping over block rank
+    within tile so that all tiles advance together (_blend_block). The
+    kernels cut the chains into segments and combine them
+    (composite_fwd_segments_plain, combine_segments_plain); this is the
+    yardstick both are held to.
     """
     _check_supported(grid)
     dev = inst.device
@@ -205,17 +213,119 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid, checkpoints
                 at = (tile_seg0 + rank // SEGMENT_BLOCKS)[active].long()
                 ckpt[at] = torch.cat([color, trans[:, None]], dim=1)[active]
         f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, F]
-        w = _block_weights(f, px, py, active, grid)  # [T, B, P]
-        one_minus = 1.0 - w
-        incl = torch.cumprod(one_minus, dim=1)
-        excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
-        eff = trans[:, None, :] * excl * w  # [T, B, P]
-        color = color + torch.einsum("tbc,tbp->tcp", f[:, :, F_R:F_R + 3], eff)
-        trans = trans * incl[:, -1]
-    zeros = torch.zeros((num_tiles, 3, p), dtype=torch.float32, device=dev)
-    out = torch.cat([color, (1.0 - trans)[:, None], trans[:, None], zeros], dim=1)
+        color, trans = _blend_block(f, px, py, active, color, trans, grid)
+    out = _rows(color, trans)
     if checkpoints:
         return out, Segments(ckpt, walked)
+    return out
+
+
+def _blend_block(f, px, py, active, color, trans, grid: TileGrid):
+    """One block of rows per tile, f [T, B, F], blended front to back into the
+    state (colour [T, 3, P], T [T, P]) -> the state after it; tiles that are
+    not ``active`` keep theirs bit for bit (their weights are 0). The
+    within-block products are an exclusive cumprod along the instance axis."""
+    w = _block_weights(f, px, py, active, grid)  # [T, B, P]
+    incl = torch.cumprod(1.0 - w, dim=1)
+    excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    eff = trans[:, None, :] * excl * w  # [T, B, P]
+    color = color + torch.einsum("tbc,tbp->tcp", f[:, :, F_R:F_R + 3], eff)
+    return color, trans * incl[:, -1]
+
+
+def _rows(color, trans):
+    """The forward's output rows (r, g, b, 1 - T, T, 0, 0, 0) -> [T, 8, P]."""
+    zeros = torch.zeros_like(color)
+    return torch.cat([color, (1.0 - trans)[:, None], trans[:, None], zeros], dim=1)
+
+
+def composite_fwd_segments_plain(inst, tile_start, tile_nblk, grid: TileGrid):
+    """Plain PyTorch version of the segment pass -> locals [S, 4, P] f32
+    (S = num_segments_cap(grid)): row first_segments[t] + j holds
+    (r, g, b, T) of segment j of tile t — its blocks [j K, min((j + 1) K,
+    nblk)) walked from colour 0 and T = 1, with no early stop. Numbers that
+    belong to no segment hold zeros here (the kernel leaves them unwritten)."""
+    _check_supported(grid)
+    whole = dataclasses.replace(grid, early_stop_eps=0.0)
+    seg0 = first_segments(tile_start)
+    locs = torch.zeros((num_segments_cap(grid), 4, grid.tile_pixels), dtype=torch.float32,
+                       device=inst.device)
+    max_nblk = int(tile_nblk.max()) if grid.num_tiles > 0 else 0  # host path: one readback
+    for j in range(-(-max_nblk // SEGMENT_BLOCKS)):
+        b0 = j * SEGMENT_BLOCKS
+        rows = composite_fwd_plain(inst, tile_start + b0,
+                                   torch.clamp(tile_nblk - b0, 0, SEGMENT_BLOCKS), whole)
+        has = tile_nblk > b0
+        locs[(seg0 + j)[has].long()] = rows[has][:, [0, 1, 2, 4]]
+    return locs
+
+
+def combine_segments_plain(locs, inst, tile_start, tile_nblk, grid: TileGrid,
+                           checkpoints=False):
+    """Plain PyTorch version of the combine pass -> [T, 8, P], or with
+    ``checkpoints`` -> ([T, 8, P], Segments(locs, walked)).
+
+    Scans every tile's locals (composite_fwd_segments) in order per pixel:
+    C += T * c, T *= t, each product and sum rounded on its own. With
+    ``checkpoints`` the state before every segment the scan applies is
+    written over that segment's local in ``locs``, in place: it becomes the
+    backward's checkpoint. The early stop (eps > 0): j* is the first segment
+    boundary j >= 1 (the chain's end counts as one) where every pixel has
+    T < eps. The serial walk's stop then lies inside segment j* - 1 or at
+    block j* K, so that one segment is walked again from its prefix with the
+    per-block vote; where the vote ends it at block b, walked = b and the rows
+    are the state there, otherwise walked = min(j* K, nblk) and the rows are
+    the prefix at j*. Without a j*, walked = nblk. Checkpoints after segment
+    j* - 1 keep their locals (the backward never reads them).
+    """
+    _check_supported(grid)
+    dev = locs.device
+    num_tiles, nsegs, eps = grid.num_tiles, locs.shape[0], grid.early_stop_eps
+    seg0 = first_segments(tile_start)
+    nseg = torch.div(tile_nblk + SEGMENT_BLOCKS - 1, SEGMENT_BLOCKS, rounding_mode="floor")
+    color = torch.zeros((num_tiles, 3, grid.tile_pixels), dtype=torch.float32, device=dev)
+    trans = torch.ones((num_tiles, grid.tile_pixels), dtype=torch.float32, device=dev)
+    before = (color, trans)  # the state before the last segment each tile applied
+    stop_seg = torch.zeros_like(tile_nblk)  # j* per tile, 0: none
+    max_seg = int(nseg.max()) if num_tiles > 0 else 0  # host path: one readback
+    for j in range(max_seg):
+        active = (j < nseg) & (stop_seg == 0)  # [T]
+        at = (seg0 + j).clamp_max(nsegs - 1).long()
+        loc = locs[at]  # [T, 4, P]
+        if checkpoints:
+            locs[at[active]] = torch.cat([color, trans[:, None]], dim=1)[active]
+        before = (torch.where(active[:, None, None], color, before[0]),
+                  torch.where(active[:, None], trans, before[1]))
+        color = torch.where(active[:, None, None], color + trans[:, None] * loc[:, :3], color)
+        trans = torch.where(active[:, None], trans * loc[:, 3], trans)
+        if eps > 0.0:
+            stop_seg = torch.where(active & (trans.amax(dim=1) < eps), j + 1, stop_seg)
+    walked = tile_nblk.clone()
+    stopped = stop_seg > 0
+    if bool(stopped.any()):
+        # segment j* - 1 once more, from its prefix, with the serial per-block
+        # vote (not at its first block: boundary j* - 1 passed the vote)
+        b0 = (stop_seg - 1) * SEGMENT_BLOCKS
+        b1 = torch.minimum(b0 + SEGMENT_BLOCKS, tile_nblk)
+        walked = torch.where(stopped, b1, walked)
+        px, py = _pixel_coords(grid, dev)
+        blocks = inst.reshape(-1, grid.block, inst.shape[1])
+        w_color, w_trans = before
+        going = stopped
+        for r in range(SEGMENT_BLOCKS):
+            going = going & (b0 + r < b1)
+            if r > 0:
+                ends = going & (w_trans.amax(dim=1) < eps)
+                walked = torch.where(ends, b0 + r, walked)
+                going = going & ~ends
+            f = blocks[torch.clamp(tile_start + b0 + r, 0, blocks.shape[0] - 1).long()]
+            w_color, w_trans = _blend_block(f, px, py, going, w_color, w_trans, grid)
+        ended = stopped & (walked < b1)
+        color = torch.where(ended[:, None, None], w_color, color)
+        trans = torch.where(ended[:, None], w_trans, trans)
+    out = _rows(color, trans)
+    if checkpoints:
+        return out, Segments(locs, walked)
     return out
 
 
@@ -292,24 +402,14 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
     return d_blocks.reshape(NUM_GRAD_COLS, nb * b)
 
 
-def deepest_first(tile_nblk):
-    """Launch order of the tiles for the composite forward kernel -> [T] int32.
-    A tile's instances are a serial chain there, so the long chains start at
-    once and the shallow tiles fill in behind them (see composite_fwd.cu)."""
-    return torch.argsort(tile_nblk, descending=True, stable=True).to(torch.int32)
-
-
-def _check_kernel_args(name, inst, tile_start, tile_nblk, tile_order, grid: TileGrid):
-    """Argument checks shared by the two wrappers -> the device type."""
+def _check_kernel_args(name, inst, tile_start, tile_nblk, grid: TileGrid):
+    """Argument checks shared by the wrappers -> the device type."""
     _check_supported(grid)
     if inst.dtype != torch.float32 or inst.ndim != 2 or inst.shape != (grid.mcap, NUM_FEATS):
         raise ValueError(
             f"{name} takes inst [mcap={grid.mcap}, {NUM_FEATS}] float32, "
             f"got {tuple(inst.shape)} {inst.dtype}")
-    ints = [("tile_start", tile_start), ("tile_nblk", tile_nblk)]
-    if tile_order is not None:
-        ints.append(("tile_order", tile_order))
-    for what, a in ints:
+    for what, a in (("tile_start", tile_start), ("tile_nblk", tile_nblk)):
         if a.dtype != torch.int32 or a.shape != (grid.num_tiles,) or a.device != inst.device:
             raise ValueError(
                 f"{name} takes {what} [T={grid.num_tiles}] int32 on "
@@ -326,48 +426,97 @@ def _cutoff_args(grid: TileGrid):
     return math.log(grid.alpha_cutoff) if use_cutoff else 0.0, int(use_cutoff)
 
 
-def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, tile_order=None,
-                  checkpoints=False):
+def _contiguous_aligned(x):
+    """The kernels read 16-byte vectors (the segment pass by bulk copies, which
+    need 16-byte aligned addresses)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def composite_fwd_segments(inst, tile_start, tile_nblk, grid: TileGrid):
+    """The forward's segment pass -> locals [S, 4, P] f32 (see
+    composite_fwd_segments_plain). On a CUDA tensor this launches
+    composite_fwd_segments_kernel (kernels/csrc/composite_fwd.cu) on the
+    current stream, without synchronizing, or raises: one CTA per segment
+    number below num_segments_cap(grid); numbers that belong to no segment
+    leave their rows unwritten. The plain version runs only for CPU tensors."""
+    if _check_kernel_args("composite_fwd_segments", inst, tile_start, tile_nblk,
+                          grid) == "cpu":
+        return composite_fwd_segments_plain(inst, tile_start, tile_nblk, grid)
+    from splatapult_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    inst = _contiguous_aligned(inst)
+    tile_start = tile_start.contiguous()
+    tile_nblk = tile_nblk.contiguous()
+    nseg = num_segments_cap(grid)
+    locs = torch.empty((nseg, 4, grid.tile_pixels), dtype=torch.float32, device=inst.device)
+    with torch.cuda.device(inst.device):
+        code = lib.splat_composite_fwd_segments(
+            inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(), locs.data_ptr(),
+            nseg, SEGMENT_BLOCKS, grid.num_tiles, grid.tiles_x, grid.tile_size, grid.height,
+            grid.block, *_cutoff_args(grid), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "composite_fwd_segments")
+    kernels.LAUNCH_COUNTS["composite_fwd_segments"] += 1
+    return locs
+
+
+def combine_segments(locs, inst, tile_start, tile_nblk, grid: TileGrid, checkpoints=False):
+    """The forward's combine pass over the locals of composite_fwd_segments ->
+    [T, 8, P] f32, or with ``checkpoints`` -> ([T, 8, P], Segments(locs,
+    walked)): the checkpoints are written over ``locs`` in place (see
+    combine_segments_plain). On a CUDA tensor this launches
+    composite_fwd_combine_kernel (kernels/csrc/composite_fwd.cu) on the
+    current stream, without synchronizing, or raises; the plain version runs
+    only for CPU tensors."""
+    kind = _check_kernel_args("combine_segments", inst, tile_start, tile_nblk, grid)
+    shape = (num_segments_cap(grid), 4, grid.tile_pixels)
+    if (locs.dtype != torch.float32 or locs.shape != shape or locs.device != inst.device
+            or not locs.is_contiguous()):
+        raise ValueError(
+            f"combine_segments takes locs {list(shape)} float32 contiguous on {inst.device}, "
+            f"got {tuple(locs.shape)} {locs.dtype} {locs.device}")
+    if kind == "cpu":
+        return combine_segments_plain(locs, inst, tile_start, tile_nblk, grid, checkpoints)
+    from splatapult_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    inst = _contiguous_aligned(inst)
+    tile_start = tile_start.contiguous()
+    tile_nblk = tile_nblk.contiguous()
+    out = torch.empty((grid.num_tiles, OUT_ROWS, grid.tile_pixels),
+                      dtype=torch.float32, device=inst.device)
+    walked = torch.empty_like(tile_nblk) if checkpoints else None
+    with torch.cuda.device(inst.device):
+        code = lib.splat_composite_fwd_combine(
+            inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(), locs.data_ptr(),
+            out.data_ptr(), walked.data_ptr() if checkpoints else 0, int(checkpoints),
+            SEGMENT_BLOCKS, grid.num_tiles, grid.tiles_x, grid.tile_size, grid.height,
+            grid.block, *_cutoff_args(grid), float(grid.early_stop_eps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "composite_fwd_combine")
+    kernels.LAUNCH_COUNTS["composite_fwd_combine"] += 1
+    return (out, Segments(locs, walked)) if checkpoints else out
+
+
+def composite_fwd(inst, tile_start, tile_nblk, grid: TileGrid, checkpoints=False):
     """Composite forward over the tile-sorted instance buffer -> [T, 8, P] f32,
     or with ``checkpoints`` (training) -> ([T, 8, P], Segments): what
     composite_bwd needs to start every segment of a tile's chain on its own.
 
     The port of splatapult_tpu/ops/composite.py::_fwd_kernel (via _fwd_call).
-    On a CUDA tensor this launches the hand-written kernel
-    (kernels/csrc/composite_fwd.cu) on the current stream, without
-    synchronizing, or raises; the plain version runs only for CPU tensors.
-    ``tile_order`` is the kernel's launch order (deepest_first; computed here
-    when not given).
+    On a CUDA tensor this launches the two hand-written kernels of
+    kernels/csrc/composite_fwd.cu on the current stream, without
+    synchronizing, or raises: composite_fwd_segments, then combine_segments.
+    Serving gives the segment pass a scratch buffer of num_segments_cap(grid)
+    x 4 x P floats; in training that buffer becomes Segments.ckpt. The rows
+    are the same bits either way. The plain version of the whole
+    (composite_fwd_plain) runs only for CPU tensors.
     """
-    if _check_kernel_args("composite_fwd", inst, tile_start, tile_nblk, tile_order,
-                          grid) == "cpu":
+    if _check_kernel_args("composite_fwd", inst, tile_start, tile_nblk, grid) == "cpu":
         return composite_fwd_plain(inst, tile_start, tile_nblk, grid, checkpoints)
-    from splatapult_tpu_torch.kernels import _build
-
-    lib = _build.load()
-    inst = inst.contiguous()
-    tile_start = tile_start.contiguous()
-    tile_nblk = tile_nblk.contiguous()
-    tile_order = deepest_first(tile_nblk) if tile_order is None else tile_order.contiguous()
-    out = torch.empty((grid.num_tiles, OUT_ROWS, grid.tile_pixels),
-                      dtype=torch.float32, device=inst.device)
-    seg, seg_ptrs = None, (0, 0)  # serving: null pointers, nothing stored
-    if checkpoints:
-        seg = Segments(
-            torch.empty((num_segments_cap(grid), 4, grid.tile_pixels), dtype=torch.float32,
-                        device=inst.device),
-            torch.empty_like(tile_nblk))
-        seg_ptrs = (seg.ckpt.data_ptr(), seg.walked.data_ptr())
-    with torch.cuda.device(inst.device):
-        code = lib.splat_composite_fwd(
-            inst.data_ptr(), tile_start.data_ptr(), tile_nblk.data_ptr(),
-            tile_order.data_ptr(), out.data_ptr(), *seg_ptrs, SEGMENT_BLOCKS,
-            grid.num_tiles, grid.tiles_x, grid.tile_size,
-            grid.height, grid.block, *_cutoff_args(grid),
-            float(grid.early_stop_eps), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "composite_fwd")
-    kernels.LAUNCH_COUNTS["composite_fwd"] += 1
-    return (out, seg) if checkpoints else out
+    locs = composite_fwd_segments(inst, tile_start, tile_nblk, grid)
+    return combine_segments(locs, inst, tile_start, tile_nblk, grid, checkpoints)
 
 
 def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid, segments=None):
@@ -383,7 +532,7 @@ def composite_bwd(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid, se
     The plain version runs only for CPU tensors and walks whole chains, so it
     takes no segments.
     """
-    kind = _check_kernel_args("composite_bwd", inst, tile_start, tile_nblk, None, grid)
+    kind = _check_kernel_args("composite_bwd", inst, tile_start, tile_nblk, grid)
     rows = (grid.num_tiles, OUT_ROWS, grid.tile_pixels)
     for what, a in (("out_res", out_res), ("dout", dout)):
         if a.dtype != torch.float32 or a.shape != rows or a.device != inst.device:
@@ -480,12 +629,10 @@ class _Composite(torch.autograd.Function):
     def forward(ctx, feats, inst_splat, tile_count, seg_offs, seg_cnt, grid):
         inst = feats[inst_splat.long()]
         start, nblk = tile_block_ranges(tile_count, grid.block)
-        order = deepest_first(nblk)
         ctx.grid = grid
         if grid.forward_only:
-            return composite_fwd(inst, start, nblk, grid, tile_order=order)
-        out, segments = composite_fwd(inst, start, nblk, grid, tile_order=order,
-                                      checkpoints=True)
+            return composite_fwd(inst, start, nblk, grid)
+        out, segments = composite_fwd(inst, start, nblk, grid, checkpoints=True)
         ctx.save_for_backward(inst, start, nblk, out, inst_splat, seg_offs, seg_cnt, *segments)
         return out
 

@@ -9,7 +9,8 @@ profile, calibrated capacity) and prints one JSON object with, under
 
 - ``frame_ms``: median milliseconds per ``render`` call by CUDA events;
 - ``phases_ms``: the same frame cut at the pipeline's public stage boundaries
-  (prepare_splats, bin_splats, pack_features + row gather, composite_fwd,
+  (prepare_splats, bin_splats, pack_features + row gather, composite_fwd and
+  each of its two launches, the segment pass and the combine,
   assemble_image), each timed with CUDA events over ``--iters`` repeats;
 - ``device_busy_ms``, ``idle_ms`` and ``idle_share`` per frame from
   ``torch.profiler`` (sum of device kernel time against the frame time; the
@@ -22,18 +23,21 @@ render of the same scene, the start a copy with seeded noise):
 
 - ``step_ms``: median milliseconds per ``train.train_step`` by CUDA events;
 - ``phases_ms``: one step cut into prepare_splats, bin_splats, pack_features +
-  row gather, composite_fwd, assemble + loss, and the backward in its parts:
+  row gather, composite_fwd (and its two launches), assemble + loss, and the
+  backward in its parts:
   assemble + loss backward (to the composite's cotangent), composite_bwd (B3),
   per_splat_sums (the tail), autograd back through pack_features and
   prepare_splats, and the Adam step; also pack_features forward + backward
   alone, beside a variant that stacks the columns instead of writing slices;
 - ``chains``: what the composite kernels' design rests on — the histogram of
   blocks per tile (tiles over 8, 16, 32, 64 blocks and their share of the
-  live slots); the share of (instance row, warp) pairs of the backward with
-  any pixel above the alpha discard, for warps laid out as 32 x 1 strips and
-  as 8 x 4 patches, and the share of (instance row, pixel) pairs above it,
-  overall and in the 32 deepest tiles; the backward's time on all tiles
-  beside its time on the tiles of at most 16 blocks;
+  live slots); the share of (instance row, warp) pairs of the composite
+  kernels (forward and backward alike) with any pixel above the alpha
+  discard, for warps laid out as 32 x 1 strips and as 8 x 4 patches, and the
+  share of (instance row, pixel) pairs above it, overall and in the 32
+  deepest tiles; the forward's and the backward's time on all tiles beside
+  their time on the tiles of at most 16 blocks (how much of a kernel's time
+  the few deep chains take);
 - ``device_busy_ms``, ``idle_ms``, ``idle_share``, launches per step and
   ``top_kernels`` from ``torch.profiler`` over whole steps;
 
@@ -213,6 +217,7 @@ def main(argv=None) -> int:
     inst = feats[bins["inst_splat"].long()]
     start, nblk = C.tile_block_ranges(bins["tile_count"], grid.block)
     out = C.composite_fwd(inst, start, nblk, grid)
+    locs = C.composite_fwd_segments(inst, start, nblk, grid)
     table = B.expand_table(d["mean2d"], d["extent"], grid, d["depth"])
     phases = {
         "prepare_splats": lambda: R.prepare_splats(scene, cam, cfg),
@@ -225,6 +230,8 @@ def main(argv=None) -> int:
         "pack_features+gather": lambda: tiled.pack_features(
             d["mean2d"], d["conic"], d["rgb"], d["alpha"])[bins["inst_splat"].long()],
         "composite_fwd": lambda: C.composite_fwd(inst, start, nblk, grid),
+        "composite_fwd/segments": lambda: C.composite_fwd_segments(inst, start, nblk, grid),
+        "composite_fwd/combine": lambda: C.combine_segments(locs, inst, start, nblk, grid),
         "assemble_image": lambda: tiled.assemble_image(out, bins["tile_ok"], grid, cfg),
     }
     phases_ms = {k: _event_ms(fn, args.iters) for k, fn in phases.items()}
@@ -256,8 +263,8 @@ def main(argv=None) -> int:
     dout = torch.autograd.grad(loss, out_p, retain_graph=True)[0]
     inst_p = feats_p.detach()[bins_p["inst_splat"].long()]
     start_p, nblk_p = C.tile_block_ranges(bins_p["tile_count"], tgrid.block)
-    order_p = C.deepest_first(nblk_p)
-    seg_p = C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p, checkpoints=True)[1]
+    seg_p = C.composite_fwd(inst_p, start_p, nblk_p, tgrid, checkpoints=True)[1]
+    locs_p = C.composite_fwd_segments(inst_p, start_p, nblk_p, tgrid)
     d_inst = C.composite_bwd(inst_p, start_p, nblk_p, out_p.detach(), dout, tgrid, seg_p)
     d_feats = C.per_splat_sums(d_inst, bins_p["inst_splat"], bins_p["seg_offs"],
                                bins_p["seg_cnt"], tgrid)
@@ -286,10 +293,16 @@ def main(argv=None) -> int:
                                            dp["depth"]),
         "pack_features+gather": lambda: tiled.pack_features(
             dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])[bins_p["inst_splat"].long()],
-        "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid, order_p,
+        "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid,
                                                  checkpoints=True),
         "composite_fwd without checkpoints (as served)": lambda: C.composite_fwd(
-            inst_p, start_p, nblk_p, tgrid, order_p),
+            inst_p, start_p, nblk_p, tgrid),
+        "composite_fwd/segments": lambda: C.composite_fwd_segments(
+            inst_p, start_p, nblk_p, tgrid),
+        # it writes the checkpoints over its input: at eps = 0 its work does
+        # not depend on the values it reads, so repeats time the same work
+        "composite_fwd/combine storing checkpoints": lambda: C.combine_segments(
+            locs_p, inst_p, start_p, nblk_p, tgrid, checkpoints=True),
         "assemble+loss": lambda: loss_of(out_p.detach()),
         "backward/assemble+loss": lambda: torch.autograd.grad(loss_of(out_leaf), out_leaf),
         "backward/composite_bwd": lambda: C.composite_bwd(
@@ -305,10 +318,19 @@ def main(argv=None) -> int:
     # the chains: how uneven they are, how many (row, warp) pairs the backward
     # really has to work on, and what the deep tiles cost it
     shallow = torch.where(nblk_p <= 16, nblk_p, 0)
-    out_s, seg_s = C.composite_fwd(inst_p, start_p, shallow, tgrid, order_p, checkpoints=True)
+    out_s, seg_s = C.composite_fwd(inst_p, start_p, shallow, tgrid, checkpoints=True)
     chains = {
         "tile_nblk": _depth_histogram(nblk_p),
+        # the same rows reach the forward's warps as the backward's
         "touched_row_warp_pairs": touched_shares(inst_p, start_p, nblk_p, tgrid),
+        "composite_fwd_ms": {
+            "all_tiles": _event_ms(train_phases["composite_fwd"], args.iters),
+            "tiles_of_at_most_16_blocks": _event_ms(lambda: C.composite_fwd(
+                inst_p, start_p, shallow, tgrid, checkpoints=True), args.iters),
+            "all_tiles_as_served": _event_ms(
+                train_phases["composite_fwd without checkpoints (as served)"], args.iters),
+            "tiles_of_at_most_16_blocks_as_served": _event_ms(lambda: C.composite_fwd(
+                inst_p, start_p, shallow, tgrid), args.iters)},
         "composite_bwd_ms": {
             "all_tiles": _event_ms(train_phases["backward/composite_bwd"], args.iters),
             "tiles_of_at_most_16_blocks": _event_ms(lambda: C.composite_bwd(
@@ -319,7 +341,7 @@ def main(argv=None) -> int:
     train_phases_ms = {k: _event_ms(fn, args.iters) for k, fn in train_phases.items()}
     # "assemble+loss" is inside "backward/assemble+loss" (grad needs a forward)
     train_phases_ms["backward/assemble+loss"] -= train_phases_ms["assemble+loss"]
-    del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf, seg_p
+    del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf, seg_p, locs_p
     train_result = {
         "step_ms": step_ms, "views_per_step": 1, "phases_ms": train_phases_ms,
         "kernel_launches_per_step": launches_per_step, "chains": chains,

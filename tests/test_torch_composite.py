@@ -66,13 +66,28 @@ def test_pack_features_equal(case):
     np.testing.assert_array_equal(got.numpy()[:, cols], want[:, cols])
 
 
-@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-4, 0.5], ids=["exact", "eps1e-4", "eps0.5"])
-def test_composite_forward_matches(case, early_stop_eps):
+@pytest.mark.parametrize("early_stop_eps,route", [
+    (0.0, "whole"), (1e-4, "whole"), (0.5, "whole"),
+    (0.0, "segments"), (1e-4, "segments"), (0.5, "segments"),
+], ids=["exact", "eps1e-4", "eps0.5", "exact-segments", "eps1e-4-segments", "eps0.5-segments"])
+def test_composite_forward_matches(case, early_stop_eps, route):
+    """The port's forward against the JAX kernel (its _fwd_call, reached
+    through composite_from_feats): whole, and as the CUDA forward computes it
+    in two passes — every 8-block segment of a tile's chain on its own
+    (composite_fwd_segments_plain), then the per-tile combine with its early
+    stop (combine_segments_plain)."""
     jgrid = jb.TileGrid.create(early_stop_eps=early_stop_eps, **GRID_KW)
     grid = tb.TileGrid.create(early_stop_eps=early_stop_eps, **GRID_KW)
     want = np.asarray(jc.composite_from_feats(case["feats"], case["bins"], jgrid))
-    got = tc.composite_from_feats(
-        torch.from_numpy(np.array(case["feats"])), _torch_bins(case["bins"]), grid).numpy()
+    feats, bins = torch.from_numpy(np.array(case["feats"])), _torch_bins(case["bins"])
+    if route == "whole":
+        got = tc.composite_from_feats(feats, bins, grid).numpy()
+    else:
+        inst = feats[bins["inst_splat"].long()]
+        start, nblk = tc.tile_block_ranges(bins["tile_count"], grid.block)
+        assert int(nblk.max()) > tc.SEGMENT_BLOCKS  # some chain has more than one segment
+        locs = tc.composite_fwd_segments_plain(inst, start, nblk, grid)
+        got = tc.combine_segments_plain(locs, inst, start, nblk, grid).numpy()
     ok = np.asarray(case["bins"]["tile_ok"])
     assert got.shape == want.shape == (grid.num_tiles, 8, grid.tile_pixels)
     assert ok.sum() > grid.num_tiles // 2

@@ -13,15 +13,20 @@ and summation order differ. Blocks that the early stop skips, and blocks no
 tile owns, are exactly zero on both sides; splats with no instance get an
 exactly zero gradient row on both sides.
 
-The CUDA kernel does not walk a tile's chain in one piece: it cuts it into
-segments of SEGMENT_BLOCKS blocks and starts each from a checkpoint (colour so
-far, T) that the forward leaves. What it relies on is tested here in plain
-PyTorch on hand-made chains (no JAX needed): the numbering of the segments,
-the checkpoints and walked-block counts as a by-product of composite_fwd_plain,
-and that a backward assembled from per-segment replays started at those
-checkpoints equals composite_bwd_plain within 1e-6 of each column's largest
-magnitude (the only difference: S at a segment's start is dRGB . colour so far
-instead of the running sum, float association).
+The CUDA kernels do not walk a tile's chain in one piece: they cut it into
+segments of SEGMENT_BLOCKS blocks. The forward walks each segment from
+colour 0 and T = 1 and combines the segments' locals per tile, which also
+gives the checkpoints (colour so far, T) that the backward starts each
+segment from. What they rely on is tested here in plain PyTorch on hand-made
+chains (no JAX needed): the numbering of the segments, the checkpoints and
+walked-block counts as a by-product of composite_fwd_plain, that the segment
+pass and the combine (composite_fwd_segments_plain, combine_segments_plain)
+give the same rows, checkpoints and walked-block counts within 1e-6 (float
+association: C + T * c per segment instead of one running sum), and that a
+backward assembled from per-segment replays started at the checkpoints equals
+composite_bwd_plain within 1e-6 of each column's largest magnitude (the only
+difference: S at a segment's start is dRGB . colour so far instead of the
+running sum, float association).
 """
 
 import dataclasses
@@ -210,12 +215,15 @@ def test_composite_bwd_rejects_bad_arguments():
 # ---- the segments the CUDA kernel works by, in plain PyTorch on hand-made chains
 
 K = tc.SEGMENT_BLOCKS
-# blocks per tile: none, one, around one segment, and three tiles of three
-# segments that an opaque wall (CHAIN_WALLS: tile -> block the wall fills) cuts
-# short under an early stop: before the first segment ends, exactly at a
-# segment boundary, and inside the second segment
-CHAIN_DEPTHS = [0, 1, K - 1, K, K + 1, 3 * K, 3 * K, 3 * K, 3 * K]
-CHAIN_WALLS = {6: 2, 7: K - 1, 8: K + 2}
+# blocks per tile: none, one, around one segment, four tiles of three
+# segments and two of two. An opaque wall (CHAIN_WALLS: tile -> block the wall
+# fills) cuts a chain short under an early stop: before the first segment
+# ends, exactly at a segment boundary, inside the second segment, and inside
+# the last segment of a 2K-block chain; the last wall fills the last block of a
+# (K + 2)-block chain, so T falls under eps only after the chain ends and no
+# block is skipped
+CHAIN_DEPTHS = [0, 1, K - 1, K, K + 1, 3 * K, 3 * K, 3 * K, 3 * K, 2 * K, K + 2]
+CHAIN_WALLS = {6: 2, 7: K - 1, 8: K + 2, 9: K + 4, 10: K + 1}
 CHAIN_TS, CHAIN_BLOCK = 8, 4
 
 
@@ -232,21 +240,26 @@ def chains():
     inst[:, tc.F_LNA] = tc.NULL_LN_ALPHA
     nblk = np.asarray(CHAIN_DEPTHS, np.int32)
     start = (np.cumsum(nblk) - nblk).astype(np.int32)
-    for t in range(nt):
-        r0, r1 = start[t] * CHAIN_BLOCK, (start[t] + nblk[t]) * CHAIN_BLOCK
-        n = r1 - r0
-        centre = np.asarray([t * CHAIN_TS + CHAIN_TS / 2, CHAIN_TS / 2], np.float32)
-        inst[r0:r1, 0:2] = centre + rng.uniform(-5, 5, (n, 2))
-        inst[r0:r1, tc.F_QA] = -rng.uniform(0.02, 0.2, n)
-        inst[r0:r1, tc.F_QB] = rng.uniform(-0.02, 0.02, n)
-        inst[r0:r1, tc.F_QC] = -rng.uniform(0.02, 0.2, n)
-        inst[r0:r1, tc.F_LNA] = np.log(rng.uniform(0.01, 0.08, n))
-        inst[r0:r1, tc.F_R:tc.F_B + 1] = rng.uniform(0, 1, (n, 3))
-        if t in CHAIN_WALLS:  # four flat splats of opacity 0.9: T falls by 1e-4 everywhere
-            w0 = r0 + CHAIN_WALLS[t] * CHAIN_BLOCK
-            inst[w0:w0 + CHAIN_BLOCK, tc.F_QA:tc.F_QC + 1] = [-1e-9, 0.0, -1e-9]
-            inst[w0:w0 + CHAIN_BLOCK, tc.F_LNA] = np.log(0.9)
-    dout = rng.standard_normal((nt, tc.OUT_ROWS, grid.tile_pixels)).astype(np.float32)
+
+    def fill(tiles):
+        for t in tiles:
+            r0, r1 = start[t] * CHAIN_BLOCK, (start[t] + nblk[t]) * CHAIN_BLOCK
+            n = r1 - r0
+            centre = np.asarray([t * CHAIN_TS + CHAIN_TS / 2, CHAIN_TS / 2], np.float32)
+            inst[r0:r1, 0:2] = centre + rng.uniform(-5, 5, (n, 2))
+            inst[r0:r1, tc.F_QA] = -rng.uniform(0.02, 0.2, n)
+            inst[r0:r1, tc.F_QB] = rng.uniform(-0.02, 0.02, n)
+            inst[r0:r1, tc.F_QC] = -rng.uniform(0.02, 0.2, n)
+            inst[r0:r1, tc.F_LNA] = np.log(rng.uniform(0.01, 0.08, n))
+            inst[r0:r1, tc.F_R:tc.F_B + 1] = rng.uniform(0, 1, (n, 3))
+            if t in CHAIN_WALLS:  # four flat splats of opacity 0.9: T falls by 1e-4 everywhere
+                w0 = r0 + CHAIN_WALLS[t] * CHAIN_BLOCK
+                inst[w0:w0 + CHAIN_BLOCK, tc.F_QA:tc.F_QC + 1] = [-1e-9, 0.0, -1e-9]
+                inst[w0:w0 + CHAIN_BLOCK, tc.F_LNA] = np.log(0.9)
+        return rng.standard_normal((len(tiles), tc.OUT_ROWS, grid.tile_pixels)).astype(np.float32)
+
+    # draw order: the first nine tiles and their cotangent, then the last two
+    dout = np.concatenate([fill(range(9)), fill(range(9, nt))])
     return {"grid": grid, "inst": _t(inst), "start": _t(start), "nblk": _t(nblk),
             "dout": _t(dout)}
 
@@ -256,6 +269,7 @@ def _walked_expected(early_stop_eps):
     if early_stop_eps > 0.0:
         for t, b in CHAIN_WALLS.items():
             walked[t] = b + 1  # the block after the wall is the first one skipped
+    assert walked[10] == CHAIN_DEPTHS[10]  # a wall on the last block skips nothing
     return walked
 
 
@@ -275,7 +289,7 @@ def test_segment_table_on_chains(chains):
     assert all(a.dtype == torch.int32 for a in (seg0, seg_tile, seg_blk0))
     assert seg0.tolist() == [int(start[t]) // K + t for t in range(grid.num_tiles)]
     want = _segments_by_hand(CHAIN_DEPTHS)
-    assert len(want) == 17 == int(live.sum())
+    assert len(want) == 21 == int(live.sum())
     assert list(zip(seg_tile[live].tolist(), seg_blk0[live].tolist())) == want
     # segment j of tile t sits at number seg0[t] + j
     for t, blk0 in want:
@@ -328,7 +342,7 @@ def test_forward_checkpoints_are_the_state_before_each_segment(chains, early_sto
                 ck = seg.ckpt[int(seg0[t]) + j]
                 assert torch.equal(ck[:3], head[t, :3]) and torch.equal(ck[3], head[t, 4])
                 checked += 1
-    assert checked == (17 if early_stop_eps == 0.0 else 12)
+    assert checked == (21 if early_stop_eps == 0.0 else 16)
 
 
 def _bwd_from_segments(case, out, seg, grid):
@@ -375,3 +389,45 @@ def test_composite_bwd_ignores_segments_on_the_cpu(chains):
     out, seg = tc.composite_fwd(inst, start, nblk, grid, checkpoints=True)
     assert torch.equal(tc.composite_bwd(inst, start, nblk, out, dout, grid, seg),
                        tc.composite_bwd(inst, start, nblk, out, dout, grid))
+
+
+@pytest.mark.parametrize("early_stop_eps", [0.0, 1e-2], ids=["exact", "eps1e-2"])
+def test_segments_and_combine_equal_the_whole_forward(chains, early_stop_eps):
+    """The two passes of the CUDA forward, in plain PyTorch: rows, walked-block
+    counts and the checkpoints of every segment the walk reached, against
+    composite_fwd_plain's serial walk."""
+    grid = dataclasses.replace(chains["grid"], early_stop_eps=early_stop_eps)
+    inst, start, nblk = chains["inst"], chains["start"], chains["nblk"]
+    want, want_seg = tc.composite_fwd_plain(inst, start, nblk, grid, checkpoints=True)
+    locs = tc.composite_fwd_segments_plain(inst, start, nblk, grid)
+    rows = tc.combine_segments_plain(locs.clone(), inst, start, nblk, grid)
+    got, seg = tc.combine_segments_plain(locs, inst, start, nblk, grid, checkpoints=True)
+    assert seg.ckpt is locs  # the checkpoints are written over the locals
+    assert torch.equal(got, rows)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert seg.walked.dtype == torch.int32
+    assert seg.walked.tolist() == want_seg.walked.tolist() == _walked_expected(early_stop_eps)
+    reached = tc.segment_table(start, seg.walked, grid)[2]
+    assert int(reached.sum()) == (21 if early_stop_eps == 0.0 else 16)
+    assert float((seg.ckpt[reached] - want_seg.ckpt[reached]).abs().max()) <= 1e-6
+    # the wall tiles' T really fell under eps, in the last segment too
+    if early_stop_eps > 0.0:
+        assert (got[list(CHAIN_WALLS), 4].amax(dim=1) < early_stop_eps).all()
+
+
+def test_segment_locals_are_each_segment_walked_alone(chains):
+    """Local j of tile t is segment j walked from colour 0 and T = 1, with no
+    early stop even where the grid has one; numbers of no segment are zero."""
+    grid = dataclasses.replace(chains["grid"], early_stop_eps=1e-2)
+    inst, start, nblk = chains["inst"], chains["start"], chains["nblk"]
+    locs = tc.composite_fwd_segments_plain(inst, start, nblk, grid)
+    seg_tile, seg_blk0, live = tc.segment_table(start, nblk, grid)
+    assert locs.shape == (tc.num_segments_cap(grid), 4, grid.tile_pixels)
+    assert (locs[~live] == 0).all()
+    no_stop = dataclasses.replace(grid, early_stop_eps=0.0)
+    for s in torch.nonzero(live).flatten().tolist():
+        t, b0 = int(seg_tile[s]), int(seg_blk0[s])
+        one = torch.zeros_like(nblk)
+        one[t] = min(K, int(nblk[t]) - b0)
+        want = tc.composite_fwd_plain(inst, start + b0, one, no_stop)[t]
+        assert torch.equal(locs[s], want[[0, 1, 2, 4]])
