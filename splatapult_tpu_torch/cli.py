@@ -8,8 +8,9 @@
 The other sub-commands of the JAX package's CLI (path, points, export, info,
 save-pose, render --stereo) are not ported yet; see ROADMAP.md.
 
-Reference flag parity: --nosh (app.cpp:335), sRGB handling (FRAMEBUFFER_SRGB).
-Runs on the GPU unless --device cpu is given.
+Reference flag parity: --nosh (app.cpp:335), --fp16 accumulation
+(app.cpp:1000-1035), sRGB handling (FRAMEBUFFER_SRGB). Runs on the GPU unless
+--device cpu is given.
 """
 
 from __future__ import annotations
@@ -37,12 +38,16 @@ def _add_common(p):
     p.add_argument("--near", type=float, default=0.1)
     p.add_argument("--far", type=float, default=1000.0)
     p.add_argument("--nosh", action="store_true", help="degree-0 SH only (ref --nosh)")
+    p.add_argument("--fp16", action="store_true", help="bf16 accumulation (ref --fp16)")
     p.add_argument("--srgb", action="store_true",
                    help="treat SH radiance as sRGB, composite in linear (ref FRAMEBUFFER_SRGB)")
     p.add_argument("--pipeline", choices=["auto", "tiled"], default="tiled",
                    help="auto picks tiled from 4096 splats up; below that it "
                         "names the global pipeline, which is not ported yet")
     p.add_argument("--tile-size", type=int, default=32)
+    p.add_argument("--packed-colors", action="store_true",
+                   help="16-bit fixed-point splat RGB (step 2^-12) in 32 B instance rows "
+                        "instead of 64 B")
     p.add_argument("--eye", type=float, nargs=3, default=[0.0, 0.5, 2.5])
     p.add_argument("--target", type=float, nargs=3, default=[0.0, 0.0, 0.0])
     p.add_argument("--up", type=float, nargs=3, default=[0.0, 1.0, 0.0])
@@ -59,8 +64,10 @@ def _config(args):
         height=args.height,
         sh_degree=0 if args.nosh else None,
         srgb_radiance_to_linear=args.srgb,
+        accum_dtype="bfloat16" if args.fp16 else "float32",
         pipeline=args.pipeline,
         tile_size=args.tile_size,
+        packed_colors=args.packed_colors,
         forward_only=True,
     )
 
@@ -266,9 +273,11 @@ def main(argv=None):
     p.add_argument("--profile", default="exact",
                    choices=("exact", "production", "custom"),
                    help="precision profile: exact = library defaults; "
-                        "production needs packed_colors, which is not ported "
-                        "yet; custom = take the individual flags as given. "
-                        "The JSON output tags which profile actually ran")
+                        "production = the JAX package's training profile "
+                        "(20-bit depth key, packed colours, early stop at "
+                        "1e-4, bf16 gradient tail); custom = take the "
+                        "individual flags as given. The JSON output tags "
+                        "which profile actually ran")
     _add_common(p)
     p.add_argument("--iters", type=int, default=20)
     p.set_defaults(fn=cmd_bench)

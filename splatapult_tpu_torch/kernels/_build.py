@@ -33,19 +33,22 @@ SIGNATURES = {
     # ends, tile0, nx, dbits, out, n, emax, row_step, stream
     "splat_expand_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # inst, tile_start, tile_nblk, locs, num_segments, seg_blocks, num_tiles,
-    # tiles_x, tile_size, height, block, ln_cutoff, use_cutoff, stream
+    # tiles_x, tile_size, height, block, ln_cutoff, use_cutoff, layout,
+    # mean_step_x, mean_step_y, mean_off_x, mean_off_y, stream
     "splat_composite_fwd_segments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                     _P],
+                                     _I, _F, _F, _F, _F, _P],
     # inst, tile_start, tile_nblk, locs, out, tile_walked, store_prefix,
     # seg_blocks, num_tiles, tiles_x, tile_size, height, block, ln_cutoff,
-    # use_cutoff, early_stop_eps, stream
+    # use_cutoff, early_stop_eps, layout, mean_step_x, mean_step_y,
+    # mean_off_x, mean_off_y, rows_bf16, stream
     "splat_composite_fwd_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _F, _P],
+                                    _F, _I, _F, _I, _F, _F, _F, _F, _I, _P],
     # inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst,
     # num_segments, seg_blocks, num_tiles, mcap, tiles_x, tile_size, height,
-    # block, ln_cutoff, use_cutoff, stream
+    # block, ln_cutoff, use_cutoff, layout, mean_step_x, mean_step_y,
+    # mean_off_x, mean_off_y, rows_bf16, stream
     "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _P],
+                            _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 _lib = None

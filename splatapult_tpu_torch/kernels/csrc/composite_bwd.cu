@@ -5,10 +5,14 @@
 // (launched by _bwd_call; helpers moment_basis, _block_weights, _tile_centers,
 // _scan_rows_add, _excl_cumprod_rows).
 //
-// Contract. `inst` and `tile_start` are the forward's (composite_fwd.cu).
-// `out_res` [T, 8, P] holds the forward's final rows (r, g, b, alpha, T_fin,
-// ...), `dout` [T, 8, P] the cotangent of those rows; rows 0-4 of each are
-// read. For every pixel p of tile t, with the per-pixel constant
+// Contract. `inst` and `tile_start` are the forward's (composite_fwd.cu),
+// the rows in any of the three layouts of row_layout.cuh (every kernel is
+// instantiated for each): rows arrive packed and are decoded where they are
+// read. `out_res` [T, 8, P] holds the forward's final rows (r, g, b, alpha,
+// T_fin, ...), `dout` [T, 8, P] the cotangent of those rows, both f32 or,
+// with bf16 accumulation, bf16 (widened to f32 as they are read); rows 0-4
+// of each are read. With bf16 accumulation the checkpoints hold the
+// forward's rounded state, and each segment starts from it. For every pixel p of tile t, with the per-pixel constant
 //   K = (dalpha - dT) * T_fin - (dR * r_fin + dG * g_fin + dB * b_fin)
 // the backward walks the tile's instances front to back with T = 1, S = 0:
 //   qh   = qa*dx*dx + qb*dx*dy + qc*dy*dy + ln_alpha
@@ -63,11 +67,13 @@
 // of each other; 8 keeps that view's checkpoints at 79 MB.
 //
 // One CTA, one segment, one pixel per thread (T and S are two registers):
-//   - rows arrive in sub-chunks of 32 by cp.async into a ring of four 2 KB
-//     buffers, the next sub-chunk while this one is walked;
+//   - rows arrive in sub-chunks of 32 by cp.async into a ring of four
+//     buffers of 2 KB, 1 KB or 512 B by layout (16-byte copies: four, two
+//     or one per row), the next sub-chunk while this one is walked;
 //   - per sub-chunk every warp first makes its list of rows: lane r takes row
 //     r and asks whether its gaussian can exceed the discard anywhere in the
-//     rectangle of the warp's pixel centres (row_may_touch in row_cull.cuh,
+//     rectangle of the warp's pixel centres (decoding its geometry;
+//     row_may_touch in row_cull.cuh,
 //     shared with the forward: the exact maximum of the exponent over the
 //     rectangle, about 50 instructions once per lane), and a ballot is the
 //     list. The warp then walks only the listed
@@ -86,7 +92,8 @@
 //     not be), zero them for sub-chunk i+1, meet at a named barrier, and one
 //     warp applies the moment algebra and writes 32 consecutive floats to
 //     each of the nine output rows. One CTA-wide barrier per sub-chunk.
-// 83 KB of dynamic shared memory and 32 registers: two CTAs per SM (one CTA
+// 83 KB of dynamic shared memory (f32x16 rows; 79 and 77 KB packed) and 32
+// registers: two CTAs per SM (one CTA
 // per SM with 48 registers measured 4.3 ms against 3.9; sub-chunks of 16 rows
 // 4.5 ms: the warps of a CTA finish a sub-chunk at different times and wait
 // at its barrier, and fewer rows between barriers even that out less).
@@ -106,12 +113,15 @@
 // pairs lie above the discard depends on the view and is counted from the
 // inputs (chip_smoke.py does, with the plain weights). A warp evaluates a
 // listed row in all 32 lanes, so the kernel does several times that work.
-// Bytes: 64 B per slot read, 36 B per slot written, 56 B per pixel and
-// segment read.
+// Bytes: 64, 32 or 16 B per slot read by layout, 36 B per slot written,
+// 56 B (36 B in bf16) per pixel and segment read. The packed layouts change
+// the bytes, not the operations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "row_cull.cuh"
+#include "row_layout.cuh"
 #include "segments.cuh"
 #include "warp_search.cuh"
 
@@ -120,23 +130,32 @@ namespace {
 constexpr bool kPatchWarps = true;  // a warp is 8 x 4 pixels, not 32 x 1
 constexpr int kMaxThreads = 1024;  // one pixel per thread: tiles up to 32 x 32
 constexpr int kChunkRows = 32;     // instance rows per sub-chunk
-constexpr int kNumFeats = 16;      // floats per feature row (64 B)
 constexpr int kRowBufs = 4;        // ring of staged sub-chunks (walked, summed, arriving)
-constexpr int kRowBufFloats = kChunkRows * kNumFeats;
 constexpr int kOutRows = 8;
 constexpr int kGradCols = 9;
 constexpr int kSlotFloats = kChunkRows * kGradCols;  // one warp's slots of a sub-chunk
 constexpr int kSumThreads = (kSlotFloats + 31) / 32 * 32;  // warps that add the slots
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__host__ __device__ constexpr int smem_floats(int nwarps) {
-  return kRowBufs * kRowBufFloats + 2 * nwarps * kSlotFloats + kSlotFloats;
+// the ring of staged rows (bytes, a multiple of 16), then the slot arrays
+__host__ __device__ constexpr int row_ring_bytes(int row_bytes) {
+  return kRowBufs * kChunkRows * row_bytes;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__host__ __device__ constexpr int smem_bytes(int nwarps, int row_bytes) {
+  return row_ring_bytes(row_bytes) +
+         (2 * nwarps * kSlotFloats + kSlotFloats) * static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
+
+// The forward's rows and their cotangent, read in their type (f32, or bf16
+// with bf16 accumulation) and widened to f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -186,17 +205,20 @@ __device__ __forceinline__ void warp_sum9(float (&m)[kGradCols], int lane) {
   }
 }
 
+template <int kLayout, typename Res>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-composite_bwd_kernel(const float* __restrict__ inst,
+composite_bwd_kernel(const unsigned char* __restrict__ inst,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_walked,
                      const float* __restrict__ ckpt,
-                     const float* __restrict__ out_res,
-                     const float* __restrict__ dout,
+                     const Res* __restrict__ out_res,
+                     const Res* __restrict__ dout,
                      float* __restrict__ d_inst, size_t mcap, int num_tiles,
                      int tiles_x, int tile_size, int height, int block,
-                     float ln_cutoff, int use_cutoff) {
-  extern __shared__ __align__(16) float smem[];
+                     float ln_cutoff, int use_cutoff, MeanDecode md) {
+  using Row = RowLayout<kLayout>;
+  constexpr int kRowBufBytes = kChunkRows * Row::kBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -214,8 +236,9 @@ composite_bwd_kernel(const float* __restrict__ inst,
   const int nthreads = blockDim.x;
   const int nwarps = nthreads >> 5;
   const int npix = tile_size * tile_size;
-  float* const rows = smem;
-  float* const part = rows + kRowBufs * kRowBufFloats;  // [2][nwarps][kSlotFloats]
+  unsigned char* const rows = smem;  // [kRowBufs][kChunkRows] rows in the layout
+  float* const part = reinterpret_cast<float*>(smem + row_ring_bytes(Row::kBytes));
+  // part: [2][nwarps][kSlotFloats]
   float* const sums = part + 2 * nwarps * kSlotFloats;  // [kSlotFloats]
 
   // this thread's pixel of the tile (row-major index p)
@@ -234,12 +257,13 @@ composite_bwd_kernel(const float* __restrict__ inst,
   const int nrows_seg = nblk * block;
   const int nsub = (nrows_seg + kChunkRows - 1) / kChunkRows;
 
-  // sub-chunk i of the segment -> rows[i % kRowBufs], asynchronously
+  // sub-chunk i of the segment -> rows[i % kRowBufs], asynchronously, in
+  // 16-byte pieces (4, 2 or 1 per row by layout)
   auto stage = [&](int i) {
-    const int n16 = min(kChunkRows, nrows_seg - i * kChunkRows) * (kNumFeats / 4);
-    float* dst = rows + (i & (kRowBufs - 1)) * kRowBufFloats;
-    const float* src = inst + (first_row + (size_t)i * kChunkRows) * kNumFeats;
-    for (int c = tid; c < n16; c += nthreads) cp_async16(dst + c * 4, src + c * 4);
+    const int n16 = min(kChunkRows, nrows_seg - i * kChunkRows) * (Row::kBytes / 16);
+    unsigned char* dst = rows + (i & (kRowBufs - 1)) * kRowBufBytes;
+    const unsigned char* src = inst + (first_row + (size_t)i * kChunkRows) * Row::kBytes;
+    for (int c = tid; c < n16; c += nthreads) cp_async16(dst + c * 16, src + c * 16);
   };
   stage(0);
   for (int i = tid * 4; i < 2 * nwarps * kSlotFloats; i += nthreads * 4) {
@@ -251,14 +275,14 @@ composite_bwd_kernel(const float* __restrict__ inst,
   float tr = 1.0f;    // T before the current instance
   float ssum = 0.0f;  // S: running sum of eff * cdot
   if (has_pixel) {
-    const float* o = out_res + (size_t)t * kOutRows * npix;
-    const float* d = dout + (size_t)t * kOutRows * npix;
+    const Res* o = out_res + (size_t)t * kOutRows * npix;
+    const Res* d = dout + (size_t)t * kOutRows * npix;
     const float* c = ckpt + (size_t)seg * 4 * npix;
-    dR = d[p];
-    dG = d[npix + p];
-    dB = d[2 * npix + p];
-    kconst = (d[3 * npix + p] - d[4 * npix + p]) * o[4 * npix + p]
-             - (dR * o[p] + dG * o[npix + p] + dB * o[2 * npix + p]);
+    dR = widen(d[p]);
+    dG = widen(d[npix + p]);
+    dB = widen(d[2 * npix + p]);
+    kconst = (widen(d[3 * npix + p]) - widen(d[4 * npix + p])) * widen(o[4 * npix + p])
+             - (dR * widen(o[p]) + dG * widen(o[npix + p]) + dB * widen(o[2 * npix + p]));
     ssum = dR * c[p] + dG * c[npix + p] + dB * c[2 * npix + p];
     tr = c[3 * npix + p];
   }
@@ -288,10 +312,11 @@ composite_bwd_kernel(const float* __restrict__ inst,
       const int prev_rows = min(kChunkRows, nrows_seg - (i - 1) * kChunkRows);
       if (warp == 0 && lane < prev_rows) {
         const float* mo = sums + lane * kGradCols;
-        const float* f = rows + ((i - 1) & (kRowBufs - 1)) * kRowBufFloats + lane * kNumFeats;
-        const float mxu = f[0] - tcx;
-        const float myu = f[1] - tcy;
-        const float qa = f[2], qb = f[3], qc = f[4];
+        const RowGeometry g = Row::geometry(
+            rows + ((i - 1) & (kRowBufs - 1)) * kRowBufBytes + lane * Row::kBytes, md);
+        const float mxu = g.mx - tcx;
+        const float myu = g.my - tcy;
+        const float qa = g.qa, qb = g.qb, qc = g.qc;
         const float m_uu = mo[0], m_uv = mo[1], m_vv = mo[2];
         const float m_u = mo[3], m_v = mo[4], m_1 = mo[5];
         const float gx = m_u - mxu * m_1;  // sum dqh * dx
@@ -310,7 +335,7 @@ composite_bwd_kernel(const float* __restrict__ inst,
     }
 
     if (i < nsub) {
-      const float* rb = rows + (i & (kRowBufs - 1)) * kRowBufFloats;
+      const unsigned char* rb = rows + (i & (kRowBufs - 1)) * kRowBufBytes;
       float* slots = part + ((i & 1) * nwarps + warp) * kSlotFloats;
       const int nrows = min(kChunkRows, nrows_seg - i * kChunkRows);
       // which rows can reach this warp's pixels at all: lane r rules on row r
@@ -321,10 +346,8 @@ composite_bwd_kernel(const float* __restrict__ inst,
         warp_rect(px, py, has_pixel, xlo, xhi, ylo, yhi);
         bool maybe = lane < nrows;
         if (maybe && use_cutoff) {
-          const float* f = rb + lane * kNumFeats;
-          const float4 g0 = *reinterpret_cast<const float4*>(f);      // mx my qa qb
-          const float2 g1 = *reinterpret_cast<const float2*>(f + 4);  // qc lna
-          maybe = row_may_touch(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, ln_cutoff,
+          const RowGeometry g = Row::geometry(rb + lane * Row::kBytes, md);
+          maybe = row_may_touch(g.mx, g.my, g.qa, g.qb, g.qc, g.lna, ln_cutoff,
                                 xlo, xhi, ylo, yhi);
         }
         cand = __ballot_sync(kFullMask, maybe);
@@ -332,15 +355,14 @@ composite_bwd_kernel(const float* __restrict__ inst,
       while (cand != 0u) {
         const int r = __ffs(cand) - 1;
         cand &= cand - 1u;
-        const float* f = rb + r * kNumFeats;
-        const float4 g0 = *reinterpret_cast<const float4*>(f);      // mx my qa qb
-        const float4 g1 = *reinterpret_cast<const float4*>(f + 4);  // qc lna r g
-        const float dx = px - g0.x;
-        const float dy = py - g0.y;
-        const float qh = g0.z * dx * dx + g0.w * dx * dy + g1.x * dy * dy + g1.y;
+        float colr, colg, colb;
+        const RowGeometry g = Row::decode(rb + r * Row::kBytes, md, colr, colg, colb);
+        const float dx = px - g.mx;
+        const float dy = py - g.my;
+        const float qh = g.qa * dx * dx + g.qb * dx * dy + g.qc * dy * dy + g.lna;
         float w = 0.0f;
         if (has_pixel && (!use_cutoff || qh > ln_cutoff)) w = expf(qh);
-        const float cdot = g1.z * dR + g1.w * dG + f[8] * dB;
+        const float cdot = colr * dR + colg * dG + colb * dB;
         const float eff = tr * w;
         ssum += eff * cdot;
         // the fast division (2 ulp; the divisor lies in [1e-9, 1]): the exact
@@ -372,6 +394,53 @@ composite_bwd_kernel(const float* __restrict__ inst,
   }
 }
 
+template <int kLayout, typename Res>
+int launch_bwd(const void* inst, const void* tile_start, const void* tile_walked,
+               const void* ckpt, const void* out_res, const void* dout, void* d_inst,
+               int num_segments, int num_tiles, int mcap, int tiles_x, int tile_size,
+               int height, int block, float ln_cutoff, int use_cutoff, MeanDecode md,
+               cudaStream_t stream) {
+  constexpr int kRowBytes = RowLayout<kLayout>::kBytes;
+  const int threads = (tile_size * tile_size + 31) / 32 * 32;
+  // above 48 KB shared memory is granted only on request: asked once per
+  // device and instantiation, not per launch
+  static int granted_device = -1;
+  int device = -1;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device != granted_device) {
+    err = cudaFuncSetAttribute(composite_bwd_kernel<kLayout, Res>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(kMaxThreads / 32, kRowBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted_device = device;
+  }
+  composite_bwd_kernel<kLayout, Res>
+      <<<num_segments, threads, smem_bytes(threads / 32, kRowBytes), stream>>>(
+          static_cast<const unsigned char*>(inst), static_cast<const int*>(tile_start),
+          static_cast<const int*>(tile_walked), static_cast<const float*>(ckpt),
+          static_cast<const Res*>(out_res), static_cast<const Res*>(dout),
+          static_cast<float*>(d_inst), static_cast<size_t>(mcap), num_tiles, tiles_x,
+          tile_size, height, block, ln_cutoff, use_cutoff, md);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLayout>
+int launch_bwd_rows(int rows_bf16, const void* inst, const void* tile_start,
+                    const void* tile_walked, const void* ckpt, const void* out_res,
+                    const void* dout, void* d_inst, int num_segments, int num_tiles, int mcap,
+                    int tiles_x, int tile_size, int height, int block, float ln_cutoff,
+                    int use_cutoff, MeanDecode md, cudaStream_t stream) {
+  if (rows_bf16) {
+    return launch_bwd<kLayout, __nv_bfloat16>(
+        inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst, num_segments, num_tiles,
+        mcap, tiles_x, tile_size, height, block, ln_cutoff, use_cutoff, md, stream);
+  }
+  return launch_bwd<kLayout, float>(
+      inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst, num_segments, num_tiles,
+      mcap, tiles_x, tile_size, height, block, ln_cutoff, use_cutoff, md, stream);
+}
+
 }  // namespace
 
 extern "C" int splat_composite_bwd(const void* inst, const void* tile_start,
@@ -380,33 +449,33 @@ extern "C" int splat_composite_bwd(const void* inst, const void* tile_start,
                                    void* d_inst, int num_segments, int seg_blocks,
                                    int num_tiles, int mcap, int tiles_x,
                                    int tile_size, int height, int block,
-                                   float ln_cutoff, int use_cutoff, void* stream) {
+                                   float ln_cutoff, int use_cutoff, int layout,
+                                   float mean_step_x, float mean_step_y, float mean_off_x,
+                                   float mean_off_y, int rows_bf16, void* stream) {
   if (num_tiles <= 0 || num_segments <= 0) return 0;
   const int npix = tile_size * tile_size;
   if (npix > kMaxThreads || block <= 0 || mcap <= 0 || seg_blocks != kSegBlocks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (npix + 31) / 32 * 32;
-  const int smem_bytes = smem_floats(threads / 32) * static_cast<int>(sizeof(float));
-  // above 48 KB shared memory is granted only on request: asked once per
-  // device, not per launch
-  static int granted_device = -1;
-  int device = -1;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device != granted_device) {
-    err = cudaFuncSetAttribute(composite_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_floats(kMaxThreads / 32) * static_cast<int>(sizeof(float)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted_device = device;
+  const MeanDecode md{mean_step_x, mean_step_y, mean_off_x, mean_off_y};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (layout) {
+    case kRowF32x16:
+      return launch_bwd_rows<kRowF32x16>(rows_bf16, inst, tile_start, tile_walked, ckpt,
+                                         out_res, dout, d_inst, num_segments, num_tiles, mcap,
+                                         tiles_x, tile_size, height, block, ln_cutoff,
+                                         use_cutoff, md, s);
+    case kRowI32x8:
+      return launch_bwd_rows<kRowI32x8>(rows_bf16, inst, tile_start, tile_walked, ckpt,
+                                        out_res, dout, d_inst, num_segments, num_tiles, mcap,
+                                        tiles_x, tile_size, height, block, ln_cutoff,
+                                        use_cutoff, md, s);
+    case kRowI32x4:
+      return launch_bwd_rows<kRowI32x4>(rows_bf16, inst, tile_start, tile_walked, ckpt,
+                                        out_res, dout, d_inst, num_segments, num_tiles, mcap,
+                                        tiles_x, tile_size, height, block, ln_cutoff,
+                                        use_cutoff, md, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  composite_bwd_kernel<<<num_segments, threads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(inst), static_cast<const int*>(tile_start),
-      static_cast<const int*>(tile_walked), static_cast<const float*>(ckpt),
-      static_cast<const float*>(out_res), static_cast<const float*>(dout),
-      static_cast<float*>(d_inst), static_cast<size_t>(mcap), num_tiles, tiles_x,
-      tile_size, height, block, ln_cutoff, use_cutoff);
-  return static_cast<int>(cudaGetLastError());
 }

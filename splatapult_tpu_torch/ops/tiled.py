@@ -59,7 +59,8 @@ def pack_features(mean2d, conic, rgb, alpha):
 
 
 def assemble_image(out, tile_ok, grid: TileGrid, config) -> torch.Tensor:
-    """Per-tile kernel output [T, 8, P] -> [H, W, 4] image (row 0 = top)."""
+    """Per-tile kernel output [T, 8, P] (f32, or bf16 rows with bf16
+    accumulation) -> [H, W, 4] f32 image (row 0 = top)."""
     # tiles with no instance -> transparent background, whatever the rows hold
     background = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0],
                               dtype=out.dtype, device=out.device)

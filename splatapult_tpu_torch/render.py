@@ -17,9 +17,12 @@ Differences by design, not translation:
 - sRGB knob: mirrors the FRAMEBUFFER_SRGB shader specialization
   (ref: shader/splat_vert.glsl:209-218).
 
-Ported: the tiled pipeline, forward and (with forward_only=False) backward.
-Options that later slices port raise NotImplementedError naming their ROADMAP
-item (here, in ops/tiled.composite_tiled and in ops/composite).
+Ported: the tiled pipeline, forward and (with forward_only=False) backward,
+in every instance-row layout (f32 rows, packed_colors, packed_feats16), with
+f32 or bf16 accumulation and an f32 or bf16 gradient tail: both PROFILES run
+as the JAX package defines them. Options that later slices port (the global
+pipeline, supersampling) raise NotImplementedError naming their ROADMAP item
+(here and in ops/tiled.composite_tiled).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Where one forward render, and one training step, spend their time on the GPU.
 
     python -m splatapult_tpu_torch.tools.profile_phases [--splats N] [--width W]
-        [--height H] [--iters K] [--out FILE.json]
+        [--height H] [--iters K] [--out FILE.json] [--profile exact|production]
+        [--packed-colors on|off] [--packed-feats16] [--grad-sort-dtype D]
+        [--early-stop EPS] [--fp16]
 
 Renders the garden stand-in (default: 1.5M splats at 1920x1080, exact
 profile, calibrated capacity) and prints one JSON object with, under
@@ -9,7 +11,9 @@ profile, calibrated capacity) and prints one JSON object with, under
 
 - ``frame_ms``: median milliseconds per ``render`` call by CUDA events;
 - ``phases_ms``: the same frame cut at the pipeline's public stage boundaries
-  (prepare_splats, bin_splats, pack_features + row gather, composite_fwd and
+  (prepare_splats, bin_splats, pack_features + row gather (the packing into
+  the row layout included; the gather alone as ``row_gather``, beside
+  torch's indexing of whole rows), composite_fwd and
   each of its two launches, the segment pass and the combine,
   assemble_image), each timed with CUDA events over ``--iters`` repeats;
 - ``device_busy_ms``, ``idle_ms`` and ``idle_share`` per frame from
@@ -42,6 +46,15 @@ render of the same scene, the start a copy with seeded noise):
   ``top_kernels`` from ``torch.profiler`` over whole steps;
 
 and the card's name and power limit as nvidia-smi reports them.
+
+``--profile`` picks the precision profile (render.PROFILES: exact, or the
+JAX package's production profile); each knob flag then overrides one field
+of it, so one knob at a time can be measured against the profile it would
+join: ``--packed-colors`` (i32x8 rows), ``--packed-feats16`` (i32x4 rows),
+``--grad-sort-dtype`` (the backward tail's columns), ``--early-stop`` (the
+transmittance threshold), ``--fp16`` (bf16 accumulation). The result names
+the knobs it ran with (``config``), the row layout's bytes per slot and the
+share of blocks the early stop leaves unwalked (``train.early_stop``).
 
 GPU only: a host timing would not be a device number.
 """
@@ -140,8 +153,9 @@ def touched_shares(inst, start, nblk, grid) -> dict:
     at least one of the warp's 32 pixels passes the alpha discard, for a warp
     laid out as a 32 x 1 strip of the tile and as an 8 x 4 patch, and the
     share (and count) of (instance row, pixel) pairs that pass it: over every
-    live row of every tile, and within the 32 deepest tiles. Counted with the
-    plain weights' exponent on the card, tile by tile."""
+    live row of every tile (rows [start, start + nblk) blocks), and within the
+    32 deepest tiles. Counted with the plain weights' exponent on the rows
+    decoded from the grid's layout, on the card, tile by tile."""
     import math
 
     from splatapult_tpu_torch.ops import composite as C
@@ -152,13 +166,14 @@ def touched_shares(inst, start, nblk, grid) -> dict:
         raise ValueError("touched shares need a tile side that is a multiple of 8 and a discard")
     ln_cut = math.log(grid.alpha_cutoff)
     px, py = C._pixel_coords(grid, dev)
+    geo = C.unpack_feats(inst, grid)[0]
     # (row, warp) pairs, of them touched as strip and as patch, touched pixels
     counts = torch.zeros((grid.num_tiles, 4), dtype=torch.int64, device=dev)
     start_h, nblk_h = start.tolist(), nblk.tolist()
     for t in range(grid.num_tiles):
         r0, r1 = start_h[t] * block, (start_h[t] + nblk_h[t]) * block
         for c0 in range(r0, r1, 4096):
-            f = inst[c0:min(c0 + 4096, r1)]
+            f = geo[c0:min(c0 + 4096, r1)]
             dx = px[t][None, :] - f[:, C.F_MX, None]
             dy = py[t][None, :] - f[:, C.F_MY, None]
             hit = (f[:, C.F_QA, None] * dx * dx + f[:, C.F_QB, None] * dx * dy
@@ -189,6 +204,15 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--profile", choices=("exact", "production"), default="exact")
+    ap.add_argument("--packed-colors", choices=("on", "off"), default=None,
+                    help="override the profile's packed_colors")
+    ap.add_argument("--packed-feats16", action="store_true", help="i32x4 instance rows")
+    ap.add_argument("--grad-sort-dtype", choices=("float32", "bfloat16"), default=None,
+                    help="override the profile's grad_sort_dtype")
+    ap.add_argument("--early-stop", type=float, default=None,
+                    help="override the profile's early_stop_eps")
+    ap.add_argument("--fp16", action="store_true", help="bf16 accumulation")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_phases: no CUDA device", file=sys.stderr)
@@ -203,7 +227,12 @@ def main(argv=None) -> int:
     scene = make_garden_scene(args.splats, seed=0)
     cam = garden_cameras(1, width=args.width, height_px=args.height)
     cfg = R.apply_profile(R.RenderConfig(width=args.width, height=args.height,
-                                         pipeline="tiled", forward_only=True), "exact")
+                                         pipeline="tiled", forward_only=True), args.profile)
+    knobs = {"packed_feats16": args.packed_feats16 or None,
+             "packed_colors": None if args.packed_colors is None else args.packed_colors == "on",
+             "grad_sort_dtype": args.grad_sort_dtype, "early_stop_eps": args.early_stop,
+             "accum_dtype": "bfloat16" if args.fp16 else None}
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in knobs.items() if v is not None})
     cfg = R.calibrate_config(scene, cam, cfg)
     grid = tiled._grid_from_config(cfg, scene.num_gaussians)
 
@@ -214,11 +243,15 @@ def main(argv=None) -> int:
     d = R.prepare_splats(scene, cam, cfg)
     bins = B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"])
     feats = tiled.pack_features(d["mean2d"], d["conic"], d["rgb"], d["alpha"])
-    inst = feats[bins["inst_splat"].long()]
+    inst = C.gather_rows(C.pack_src(feats, grid), bins["inst_splat"].long())
     start, nblk = C.tile_block_ranges(bins["tile_count"], grid.block)
     out = C.composite_fwd(inst, start, nblk, grid)
     locs = C.composite_fwd_segments(inst, start, nblk, grid)
     table = B.expand_table(d["mean2d"], d["extent"], grid, d["depth"])
+    packed = C.pack_src(feats, grid)
+    splat_ids = bins["inst_splat"].long()
+    if not torch.equal(C.gather_rows(packed, splat_ids), packed[splat_ids]):
+        raise AssertionError("gather_rows differs from torch's row indexing")
     phases = {
         "prepare_splats": lambda: R.prepare_splats(scene, cam, cfg),
         "bin_splats": lambda: B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"]),
@@ -227,8 +260,12 @@ def main(argv=None) -> int:
         "bin_splats/expand_fill": lambda: B.expand_fill(
             table["ends"], table["tile0"], table["nx"], table["dbits"], grid.emax,
             grid.tiles_x),
-        "pack_features+gather": lambda: tiled.pack_features(
-            d["mean2d"], d["conic"], d["rgb"], d["alpha"])[bins["inst_splat"].long()],
+        "pack_features+gather": lambda: C.gather_rows(C.pack_src(tiled.pack_features(
+            d["mean2d"], d["conic"], d["rgb"], d["alpha"]), grid), bins["inst_splat"].long()),
+        # the gather alone (ops/composite.gather_rows: 16-byte elements of a
+        # 1-D view), beside torch's indexing of whole rows
+        "row_gather": lambda: C.gather_rows(packed, splat_ids),
+        "row_gather/torch row indexing": lambda: packed[splat_ids],
         "composite_fwd": lambda: C.composite_fwd(inst, start, nblk, grid),
         "composite_fwd/segments": lambda: C.composite_fwd_segments(inst, start, nblk, grid),
         "composite_fwd/combine": lambda: C.combine_segments(locs, inst, start, nblk, grid),
@@ -261,7 +298,7 @@ def main(argv=None) -> int:
     loss = train.l2_image_loss(tiled.assemble_image(out_p, bins_p["tile_ok"], tgrid, tcfg),
                                target)
     dout = torch.autograd.grad(loss, out_p, retain_graph=True)[0]
-    inst_p = feats_p.detach()[bins_p["inst_splat"].long()]
+    inst_p = C.gather_rows(C.pack_src(feats_p.detach(), tgrid), bins_p["inst_splat"].long())
     start_p, nblk_p = C.tile_block_ranges(bins_p["tile_count"], tgrid.block)
     seg_p = C.composite_fwd(inst_p, start_p, nblk_p, tgrid, checkpoints=True)[1]
     locs_p = C.composite_fwd_segments(inst_p, start_p, nblk_p, tgrid)
@@ -291,8 +328,8 @@ def main(argv=None) -> int:
         "prepare_splats (with graph)": lambda: R.prepare_splats(params, cam, tcfg),
         "bin_splats": lambda: B.bin_splats(dp["mean2d"].detach(), dp["extent"], tgrid,
                                            dp["depth"]),
-        "pack_features+gather": lambda: tiled.pack_features(
-            dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])[bins_p["inst_splat"].long()],
+        "pack_features+gather": lambda: C.gather_rows(C.pack_src(tiled.pack_features(
+            dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"]), tgrid), bins_p["inst_splat"].long()),
         "composite_fwd": lambda: C.composite_fwd(inst_p, start_p, nblk_p, tgrid,
                                                  checkpoints=True),
         "composite_fwd without checkpoints (as served)": lambda: C.composite_fwd(
@@ -317,6 +354,12 @@ def main(argv=None) -> int:
     }
     # the chains: how uneven they are, how many (row, warp) pairs the backward
     # really has to work on, and what the deep tiles cost it
+    # the blocks the early stop leaves unwalked (B2's segment pass walks them
+    # all the same; the combine and B3 do not)
+    early_stop = {"eps": tgrid.early_stop_eps, "blocks": int(nblk_p.sum()),
+                  "blocks_walked": int(seg_p.walked.sum()),
+                  "share_unwalked": 1.0 - int(seg_p.walked.sum()) / max(int(nblk_p.sum()), 1),
+                  "tiles_stopped_early": int((seg_p.walked < nblk_p).sum())}
     shallow = torch.where(nblk_p <= 16, nblk_p, 0)
     out_s, seg_s = C.composite_fwd(inst_p, start_p, shallow, tgrid, checkpoints=True)
     chains = {
@@ -344,12 +387,18 @@ def main(argv=None) -> int:
     del dp, feats_p, out_p, loss, dout, d_inst, d_feats, inst_p, out_leaf, seg_p, locs_p
     train_result = {
         "step_ms": step_ms, "views_per_step": 1, "phases_ms": train_phases_ms,
+        "early_stop": early_stop,
         "kernel_launches_per_step": launches_per_step, "chains": chains,
         **_profile(lambda: train.train_step(params, opt, cam, target, tcfg), 3, step_ms)}
 
     result = {
         "splats": scene.num_gaussians, "width": args.width, "height": args.height,
-        "profile": R.profile_name(cfg), "emax": grid.emax, "mcap": grid.mcap,
+        "profile": R.profile_name(cfg),
+        "config": {k: getattr(cfg, k) for k in (
+            "depth_bits", "packed_colors", "packed_feats16", "early_stop_eps",
+            "grad_sort_dtype", "accum_dtype")},
+        "row_bytes_per_slot": 4 * C.num_feats(grid),
+        "emax": grid.emax, "mcap": grid.mcap,
         "instances": int(table["ends"][-1]),
         "render": render_result, "train": train_result,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),

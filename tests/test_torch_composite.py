@@ -155,10 +155,23 @@ def test_backward_through_composite_raises(case):
     {"packed_colors": True}, {"packed_feats16": True}, {"accum_dtype": "bfloat16"},
 ], ids=["packed_colors", "packed_feats16", "bf16_accum"])
 def test_composite_deferred_layouts_raise(case, knob):
+    """These layouts are ported (tests/test_torch_packed.py holds them against
+    the JAX package): the composite runs in each, and what raises now is a
+    wrapper handed rows, or forward rows, of another layout than its grid's."""
     grid = tb.TileGrid.create(**GRID_KW, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.composite_from_feats(
-            torch.from_numpy(np.array(case["feats"])), _torch_bins(case["bins"]), grid)
+    feats, bins = torch.from_numpy(np.array(case["feats"])), _torch_bins(case["bins"])
+    out = tc.composite_from_feats(feats, bins, grid)
+    rows_dtype = torch.bfloat16 if grid.accum_dtype == "bfloat16" else torch.float32
+    assert out.dtype == rows_dtype and bool(torch.isfinite(out.float()).all())
+    start, nblk = tc.tile_block_ranges(bins["tile_count"], grid.block)
+    inst = tc.pack_src(feats, grid)[bins["inst_splat"].long()]
+    assert inst.shape == (grid.mcap, tc.num_feats(grid))
+    other = (torch.zeros((grid.mcap, 8), dtype=torch.int32) if inst.shape[1] == 16
+             else torch.zeros((grid.mcap, 16)))
+    with pytest.raises(ValueError, match="row layout"):
+        tc.composite_fwd(other, start, nblk, grid)
+    with pytest.raises(ValueError, match="out_res"):
+        tc.composite_bwd(inst, start, nblk, out.to(torch.float64), out, grid)
 
 
 def test_composite_fwd_rejects_bad_arguments():

@@ -190,10 +190,19 @@ def test_backward_contracts_raise(garden):
     out = tc.composite_from_feats(feats, bins, tb.TileGrid.create(forward_only=True, **GRID_KW))
     with pytest.raises(ValueError, match="forward_only=True"):
         out.sum().backward()
+    # the bf16 gradient tail is ported (tests/test_torch_packed.py holds it
+    # against the JAX package): the backward runs, and a cotangent of rows in
+    # another dtype than the forward's is what composite_bwd refuses
     out = tc.composite_from_feats(
         feats, bins, tb.TileGrid.create(grad_sort_dtype="bfloat16", **GRID_KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        out.sum().backward()
+    out.sum().backward()
+    assert bool(torch.isfinite(feats.grad).all()) and float(feats.grad.abs().max()) > 0.0
+    grid = tb.TileGrid.create(accum_dtype="bfloat16", **GRID_KW)
+    start, nblk = tc.tile_block_ranges(bins["tile_count"], grid.block)
+    rows = torch.zeros((grid.num_tiles, 8, grid.tile_pixels))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tc.composite_bwd(feats.detach()[bins["inst_splat"].long()], start, nblk, rows, rows,
+                         grid)
 
 
 def test_composite_bwd_rejects_bad_arguments():

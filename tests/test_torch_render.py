@@ -187,12 +187,22 @@ def test_config_and_profiles_match():
     {"supersample": 2}, {"sort_bands": 2}, {"pipeline": "global"},
 ], ids=lambda k: next(iter(k)))
 def test_deferred_knobs_raise_not_implemented(knob):
+    """Knobs of later slices raise naming their ROADMAP item. The row layouts
+    and bf16 accumulation are ported now: they render, near the exact image
+    (JAX's packed_feats16 contract, tests/test_tiled.py; tests/test_torch_packed.py
+    holds each against the JAX package)."""
     scene = make_debug_scene(device="cpu")
     cam = st.Camera.from_fov(
         tT.look_at(eye=[1.2, 1.1, 1.3], target=[0.3, 0.3, 0.3], up=[0, 1, 0]),
         fovy=np.pi / 4, width=64, height=64, device="cpu")
-    cfg = st.RenderConfig(**{**dict(width=64, height=64, pipeline="tiled", tile_size=16,
-                                    tile_block=8), **knob})
+    base = st.RenderConfig(width=64, height=64, pipeline="tiled", tile_size=16, tile_block=8)
+    cfg = dataclasses.replace(base, **knob)
+    if next(iter(knob)) in ("packed_colors", "packed_feats16", "accum_dtype"):
+        img, exact = st.render(scene, cam, cfg), st.render(scene, cam, base)
+        assert img.dtype == torch.float32 and float(img[..., 3].max()) > 0.5
+        diff = (img - exact).abs()
+        assert float(diff.max()) < 0.05 and float(diff.mean()) < 2e-3
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         st.render(scene, cam, cfg)
 
@@ -254,6 +264,25 @@ def test_cli_synth_and_render_on_cpu(tmp_path):
               "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0", "--device", "cpu"])
     img = load_png(png)
     assert img.shape == (64, 96, 3) and img.max() > 0.1
+
+
+def test_cli_packed_fp16_render_and_production_bench_on_cpu(tmp_path):
+    """render --packed-colors --fp16 runs through the plain path; bench
+    --profile production refuses the CPU with its device error (it measures
+    the GPU), not with NotImplementedError."""
+    from splatapult_tpu_torch import cli
+
+    ply, png = str(tmp_path / "g.ply"), str(tmp_path / "g.png")
+    view = ["--width", "96", "--height", "64", "--tile-size", "16",
+            "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0", "--device", "cpu"]
+    cli.main(["synth", "garden", "--splats", "3000", "-o", ply])
+    cli.main(["render", ply, "-o", png, "--packed-colors", "--fp16", *view])
+    packed = load_png(png)
+    cli.main(["render", ply, "-o", png, *view])
+    assert packed.shape == (64, 96, 3) and packed.max() > 0.1
+    assert np.abs(packed - load_png(png)).max() <= 0.05  # JAX's bf16 tolerance
+    with pytest.raises(SystemExit, match="GPU"):
+        cli.main(["bench", ply, "--profile", "production", *view])
 
 
 def _port_sources():
