@@ -5,10 +5,11 @@ and the parameter-to-covariance bake of its scene import
 (ref: src/gaussiancloud.cpp:86-94): quaternion -> rotation, cov = R S S^T R^T,
 OpenGL-convention projection matrices (including the infinite-far and asymmetric
 tan-angle variants of CreateProjection, ref: src/core/util.cpp:412-480), and
-sRGB -> linear conversion (ref: src/core/util.cpp:357-402).
+sRGB <-> linear conversion (ref: src/core/util.cpp:357-402).
 
-Per-splat functions (normalize, quat_to_rotmat, bake_covariance,
-srgb_to_linear) and invert_rigid take and return torch tensors on the
+Per-splat functions (normalize, quat_to_rotmat, rotmat_to_quat,
+bake_covariance, covariance_to_quat_scale, srgb_to_linear, linear_to_srgb)
+and invert_rigid take and return torch tensors on the
 caller's device. The camera-matrix constructors (look_at, perspective,
 projection_from_tan_angles) are host math on a handful of scalars and return
 float32 numpy [4, 4] arrays; render.Camera places them on a device.
@@ -59,6 +60,48 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ])
     return rows.reshape(*rows.shape[:-1], 3, 3)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion (w, x, y, z), w >= 0.
+
+    Shepperd's method without branches: all four candidate constructions are
+    computed and the best-conditioned one (largest pivot) is selected. Used
+    by covariance -> {rot, scale} export, the analog of the reference's
+    Eigen path (ref: src/gaussiancloud.cpp:96-117).
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack([
+        torch.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], -1),
+    ], -2)  # [..., 4 (candidate), 4 (wxyz)]
+    # the construction whose pivot (its diagonal entry) is largest
+    pivots = torch.diagonal(cands, dim1=-2, dim2=-1)
+    best = torch.argmax(pivots, dim=-1)
+    q = torch.take_along_dim(cands, best[..., None, None].expand(*best.shape, 1, 4),
+                             dim=-2)[..., 0, :]
+    q = normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def covariance_to_quat_scale(cov: torch.Tensor):
+    """3x3 covariance -> (quat wxyz, scale). Inverse of bake_covariance.
+
+    torch.linalg.eigh replaces the reference's Eigen SelfAdjointEigenSolver
+    (ref: ComputeRotScaleFromCovMat, src/gaussiancloud.cpp:96-117), including
+    its det < 0 flip so the eigenbasis is a proper rotation. The eigenvectors'
+    signs are the solver's choice, so compare covariances, not quaternions.
+    """
+    vals, vecs = torch.linalg.eigh(cov)
+    det = torch.linalg.det(vecs)
+    vecs = vecs * torch.where(det < 0, -1.0, 1.0)[..., None, None]
+    scale = torch.sqrt(torch.clamp_min(vals, 0.0))
+    return rotmat_to_quat(vecs), scale
 
 
 def bake_covariance(quats: torch.Tensor, log_scales: torch.Tensor) -> torch.Tensor:
@@ -148,3 +191,10 @@ def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     return torch.where(
         c <= 0.04045, c / 12.92,
         torch.pow(torch.clamp_min((c + 0.055) / 1.055, 0.0), 2.4))
+
+
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """Per-channel linear -> sRGB (ref: src/core/util.cpp:377-402)."""
+    return torch.where(
+        c <= 0.0031308, c * 12.92,
+        1.055 * torch.pow(torch.clamp_min(c, 1e-12), 1.0 / 2.4) - 0.055)

@@ -203,3 +203,17 @@ def make_debug_scene(device=DEFAULT_DEVICE) -> GaussianScene:
     log_scales = np.full((n, 3), 0.5 * np.log(cov_diag), np.float32)
     quats = np.tile(np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1))
     return _scene_from_arrays(means, sh, opacities, log_scales, quats, device)
+
+
+def prune_splats(scene: GaussianScene, origin, num_splats: int) -> GaussianScene:
+    """Keep the num_splats nearest to origin, nearest first (ties in scene
+    order: a stable sort by distance), on the scene's device (ref:
+    GaussianCloud::PruneSplats, src/gaussiancloud.cpp:581-626)."""
+    if num_splats >= scene.num_gaussians:
+        return scene
+    means = _np(scene.means)
+    dist = np.linalg.norm(means - np.asarray(origin, np.float32)[None, :], axis=-1)
+    keep = torch.from_numpy(np.argsort(dist, kind="stable")[:num_splats]).to(
+        scene.means.device)
+    return GaussianScene(**{f.name: getattr(scene, f.name)[keep]
+                            for f in dataclasses.fields(scene)})

@@ -73,7 +73,15 @@ class PlyData:
         return np.ascontiguousarray(self.vertices[name])
 
     def columns(self, names, dtype=np.float32) -> np.ndarray:
-        """Stack several properties into an [N, len(names)] array."""
+        """Stack several properties into an [N, len(names)] array.
+
+        Uses the native multithreaded de-interleaver (io/native.py) when it
+        builds and the target dtype is float32; numpy otherwise.
+        """
+        if dtype == np.float32:
+            from splatapult_tpu_torch.io import native
+
+            return native.decode_columns(self.vertices, list(names))
         return np.stack([self.vertices[n].astype(dtype) for n in names], axis=-1)
 
 

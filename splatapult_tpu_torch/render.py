@@ -17,12 +17,14 @@ Differences by design, not translation:
 - sRGB knob: mirrors the FRAMEBUFFER_SRGB shader specialization
   (ref: shader/splat_vert.glsl:209-218).
 
-Ported: the tiled pipeline, forward and (with forward_only=False) backward,
-in every instance-row layout (f32 rows, packed_colors, packed_feats16), with
-f32 or bf16 accumulation and an f32 or bf16 gradient tail: both PROFILES run
-as the JAX package defines them. Options that later slices port (the global
-pipeline, supersampling) raise NotImplementedError naming their ROADMAP item
-(here and in ops/tiled.composite_tiled).
+Both pipelines run, forward and backward: the tiled one in every
+instance-row layout (f32 rows, packed_colors, packed_feats16), with f32 or
+bf16 accumulation and an f32 or bf16 gradient tail (both PROFILES run as the
+JAX package defines them), and the global one (_composite_global), which
+``pipeline="auto"`` picks below 4096 splats. ``supersample`` renders at a
+multiple of the size and box-filters down; render_batch renders a [V]-batched
+camera (a path, or Camera.stereo_pair's two eyes) one view after another.
+sort_bands > 1, a TPU workaround, is not ported (ops/tiled.composite_tiled).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from splatapult_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from splatapult_tpu_torch.core import transforms
@@ -94,6 +97,40 @@ class Camera:
     def to(self, device) -> "Camera":
         return Camera(cam_to_world=self.cam_to_world.to(device),
                       proj=self.proj.to(device))
+
+    def stereo_pair(self, ipd: float = 0.064, tan_angles=None,
+                    near: float = 0.1, far: float = 1000.0) -> "Camera":
+        """[2]-batched left/right eye cameras offset along the camera's +X
+        axis by -ipd/2 and +ipd/2 — the batched analog of the reference's
+        OpenXR stereo views (ref: src/xrbuddy.cpp:1689-1800). Render it with
+        render_batch (one view after another).
+
+        tan_angles: optional [2, 4] per-eye asymmetric frustum tangents
+        (tan_left, tan_right, tan_up, tan_down — tan_left/tan_down negative
+        for a frustum crossing the axis), the values an HMD runtime reports
+        per eye (ref: src/xrbuddy.cpp:1802-1832 feeding util.cpp:412-480).
+        Each eye then gets its own projection_from_tan_angles(near, far)
+        projection; None duplicates this camera's proj. far <= near places
+        the far plane at infinity. Both fields are on this camera's device."""
+        c2w = self.cam_to_world
+        offsets = torch.tensor([-ipd / 2.0, ipd / 2.0], dtype=torch.float32,
+                               device=c2w.device)
+        shift = torch.zeros((2, 4, 4), dtype=c2w.dtype, device=c2w.device)
+        shift[:, :3, 3] = offsets[:, None] * c2w[:3, 0][None, :]
+        mats = c2w[None] + shift
+        if tan_angles is None:
+            proj = torch.stack([self.proj, self.proj])
+        else:
+            ta = np.asarray(tan_angles, np.float32)
+            if ta.shape != (2, 4):
+                raise ValueError(
+                    f"tan_angles must be [2, 4] (per-eye l, r, u, d), got {ta.shape}")
+            proj = torch.stack([
+                _mat(transforms.projection_from_tan_angles(
+                    float(ta[e, 0]), float(ta[e, 1]), float(ta[e, 2]),
+                    float(ta[e, 3]), near, far), c2w.device)
+                for e in range(2)])
+        return Camera(cam_to_world=mats, proj=proj)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,18 +207,45 @@ def profile_name(config: RenderConfig) -> str:
     return "custom"
 
 
+class _PermuteRows(torch.autograd.Function):
+    """Row permutation x[order] whose backward is the inverse gather
+    g[inv_order]: the transpose of a permutation, where indexing's own
+    backward would be a scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, order, inv_order):
+        ctx.save_for_backward(inv_order)
+        return x[order]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_order,) = ctx.saved_tensors
+        return g[inv_order], None, None
+
+
+def _front_to_back_order(depth: torch.Tensor, mask: torch.Tensor):
+    """-> (order, inv_order): ascending depth, culled splats (+inf keys) at the
+    end, equal keys by descending index — the order of the JAX package's
+    ``lax.sort((key, -idx, idx), num_keys=2)``, as a stable sort of the
+    reversed enumeration."""
+    key = torch.where(mask, depth, torch.inf)
+    n = key.shape[0]
+    order = (n - 1) - torch.sort(key.flip(0), stable=True).indices
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(n, dtype=order.dtype, device=order.device)
+    return order, inv_order
+
+
 def prepare_splats(scene: GaussianScene, camera: Camera, config: RenderConfig,
                    sort: bool = False):
-    """Shared front end: bake + project + SH -> dict of per-splat tensors in
-    scene order. The tiled pipeline orders instances by a per-instance depth
-    sort key inside ops/binning.bin_splats, so no global depth sort happens
-    here; ``sort=True`` (the global pipeline's pre-sorted form) is not ported.
+    """Shared front end: bake + project + SH -> dict of per-splat tensors.
+
+    With ``sort=False`` (the tiled pipeline's form, and the default here) the
+    tensors stay in scene order: ops/binning.bin_splats orders instances by a
+    per-instance depth sort key instead. With ``sort=True`` (the global
+    pipeline's form) they are sorted front-to-back with culled splats pushed
+    to the back carrying zero alpha, in the JAX package's order bit for bit.
     """
-    if sort:
-        raise NotImplementedError(
-            "prepare_splats(sort=True) feeds the global pipeline, which is "
-            "not ported yet (ROADMAP: 'global pipeline, render_batch, "
-            "supersample')")
     means = scene.means
     cov3 = transforms.bake_covariance(scene.quats, scene.log_scales)
     alpha = torch.sigmoid(scene.opacities)  # ref: src/gaussiancloud.cpp:119-122
@@ -215,16 +279,123 @@ def prepare_splats(scene: GaussianScene, camera: Camera, config: RenderConfig,
         )
         shrink = torch.sqrt(torch.clamp(k2, 0.0, EXTENT_SIGMA * EXTENT_SIGMA)) / EXTENT_SIGMA
         extent = extent * shrink.detach()[:, None]
+    if not sort:
+        return {
+            "mean2d": proj.mean2d,
+            "conic": proj.conic,
+            "rgb": rgb,
+            "alpha": alpha_eff,
+            "depth": proj.depth.detach(),
+            "radius": proj.radius.detach(),
+            "extent": extent.detach(),
+            "mask": proj.mask,
+        }
+
+    # Front-to-back order: ascending view depth; culled splats get +inf keys so
+    # they land at the end (static-shape replacement for the reference's atomic
+    # compaction, ref: shader/presort_compute.glsl:50-55). The reference's
+    # stable radix sort draws equal-depth splats back-to-front in submission
+    # order (ref: shader/presort_compute.glsl:52-53), so the front-to-back
+    # order breaks ties by *descending* index.
+    order, inv_order = _front_to_back_order(proj.depth.detach(), proj.mask)
+
+    # ONE packed row permutation for every per-splat output: a single [N, 14]
+    # gather and, backward, a single inverse gather
+    packed = torch.cat(
+        [proj.mean2d, proj.conic, rgb, alpha_eff[:, None],
+         proj.depth.detach()[:, None], proj.radius.detach()[:, None],
+         extent.detach(), proj.mask.to(torch.float32)[:, None]],
+        dim=1,
+    )  # [N, 14]
+    packed_sorted = _PermuteRows.apply(packed, order, inv_order)
     return {
-        "mean2d": proj.mean2d,
-        "conic": proj.conic,
-        "rgb": rgb,
-        "alpha": alpha_eff,
-        "depth": proj.depth.detach(),
-        "radius": proj.radius.detach(),
-        "extent": extent.detach(),
-        "mask": proj.mask,
+        "mean2d": packed_sorted[:, 0:2],
+        "conic": packed_sorted[:, 2:5],
+        "rgb": packed_sorted[:, 5:8],
+        "alpha": packed_sorted[:, 8],
+        "depth": packed_sorted[:, 9],
+        "radius": packed_sorted[:, 10],
+        "extent": packed_sorted[:, 11:13],
+        "mask": packed_sorted[:, 13] > 0.5,
     }
+
+
+def _global_block(color, trans, m2, cn, cb, ab, gx, gy, alpha_cutoff, dtype):
+    """One block of the global composite: B splats front to back against every
+    pixel, from the carry (colour [P, 3], T [P]) -> the carry after them."""
+    dx = gx[None, :] - m2[:, 0:1]  # [B, P]
+    dy = gy[None, :] - m2[:, 1:2]
+    # g = exp(-0.5 d^T conic d) (ref: shader/splat_frag.glsl:20-25)
+    q = cn[:, 0:1] * dx * dx + 2.0 * cn[:, 1:2] * dx * dy + cn[:, 2:3] * dy * dy
+    wgt = ab[:, None] * torch.exp(-0.5 * q)
+    if alpha_cutoff > 0.0:
+        # shader/splat_frag.glsl:38-41
+        wgt = torch.where(wgt > alpha_cutoff, wgt, 0.0)
+    wgt = wgt.to(dtype)
+    t_cum = torch.cumprod(1.0 - wgt, dim=0)  # transmittance after each splat in block
+    t_before = torch.cat([torch.ones_like(t_cum[:1]), t_cum[:-1]], dim=0)
+    eff = t_before * wgt  # [B, P] per-splat effective weight within block
+    contrib = eff.t() @ cb.to(dtype)  # [P, 3]
+    return color + trans[:, None] * contrib, trans * t_cum[-1]
+
+
+def _composite_global(sorted_splats, config: RenderConfig) -> torch.Tensor:
+    """Whole-image blockwise front-to-back composite -> [H, W, 4] f32.
+
+    O(N * P): every splat is evaluated against every pixel, masked by the 1/256
+    cutoff. Correct and differentiable for any scene; intended for small scenes
+    and as the second-tier oracle for the tiled pipeline. The scan carry is
+    (accumulated premultiplied RGB, transmittance) per pixel; within a block the
+    front-to-back products are closed-form via cumprod, and the colour is a
+    [P, B] x [B, 3] product. With accum_dtype="bfloat16" the weights are
+    rounded to bf16 before the cumprod and the product and the carry are bf16,
+    where the JAX package rounds. Plain PyTorch: the JAX package computes this
+    in XLA, not in a Pallas kernel.
+    """
+    h, w = config.height, config.width
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[config.accum_dtype]
+    b = config.block_size
+    mean2d = sorted_splats["mean2d"]
+    n = mean2d.shape[0]
+    nb = -(-n // b)
+    pad = nb * b - n
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1) + [0, pad])
+        return x.reshape(nb, b, *x.shape[1:])
+
+    dev = mean2d.device
+    # gl_FragCoord-style pixel centers, row 0 = top of image
+    px = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    py = h - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+    gx = px[None, :].expand(h, w).reshape(h * w)
+    gy = py[:, None].expand(h, w).reshape(h * w)
+    m2, cn, cb, ab = (blocks(sorted_splats[k]) for k in ("mean2d", "conic", "rgb", "alpha"))
+    color = torch.zeros((h * w, 3), dtype=dtype, device=dev)
+    trans = torch.ones((h * w,), dtype=dtype, device=dev)
+    cutoff = float(config.alpha_cutoff)
+    differentiated = torch.is_grad_enabled() and any(x.requires_grad for x in (m2, cn, cb, ab))
+    for k in range(nb):
+        args = (color, trans, m2[k], cn[k], cb[k], ab[k], gx, gy, cutoff, dtype)
+        if differentiated:
+            # the backward recomputes each block from the carry it started
+            # from: only the carries ([nb, P, 4] in all) outlive the forward,
+            # not every block's [B, P] temporaries (tens of GB at 1024x768
+            # and a few thousand splats)
+            color, trans = torch.utils.checkpoint.checkpoint(
+                _global_block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            color, trans = _global_block(*args)
+    img = torch.cat([color, (1.0 - trans)[:, None]], dim=-1)
+    return img.reshape(h, w, 4).to(torch.float32)
+
+
+def resolve_pipeline(config: RenderConfig, num_splats: int) -> str:
+    """The pipeline render runs: ``"auto"`` is global below 4096 splats and
+    tiled from there up."""
+    if config.pipeline == "auto":
+        return "tiled" if num_splats >= 4096 else "global"
+    return config.pipeline
 
 
 def render(scene: GaussianScene, camera: Camera, config: RenderConfig) -> torch.Tensor:
@@ -235,21 +406,43 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig) -> torch.
     (ref: src/splatrenderer.cpp:153-343).
     """
     if config.supersample > 1:
-        raise NotImplementedError(
-            "supersample > 1 is not ported yet (ROADMAP: 'global pipeline, "
-            "render_batch, supersample')")
-    pipeline = config.pipeline
-    if pipeline == "auto":
-        pipeline = "tiled" if scene.means.shape[0] >= 4096 else "global"
+        ss = config.supersample
+        img = render(scene, camera, _rendered_config(config))
+        # box-filter resolve (the reference averages the supersample grid,
+        # ref: shader/desktop_frag.glsl:22-29)
+        h, w = config.height, config.width
+        return img.reshape(h, ss, w, ss, 4).mean(dim=(1, 3))
+    pipeline = resolve_pipeline(config, scene.means.shape[0])
     if pipeline == "global":
-        raise NotImplementedError(
-            "pipeline='global' (and 'auto' below 4096 splats) is not ported "
-            "yet (ROADMAP: 'global pipeline, render_batch, supersample'); "
-            "pass pipeline='tiled'")
+        return _composite_global(prepare_splats(scene, camera, config, sort=True), config)
     if pipeline != "tiled":
         raise ValueError(f"unknown pipeline {config.pipeline!r}")
     # unsorted prepare: the binning sort carries the depth key instead
     return composite_tiled(prepare_splats(scene, camera, config), config)
+
+
+def _rendered_config(config: RenderConfig) -> RenderConfig:
+    """The config of the image actually rendered: supersample x the width and
+    height, supersample 1 (the config itself when supersample is 1)."""
+    ss = config.supersample
+    if ss <= 1:
+        return config
+    return dataclasses.replace(config, supersample=1, width=config.width * ss,
+                               height=config.height * ss)
+
+
+def render_batch(scene: GaussianScene, cameras: Camera, config: RenderConfig) -> torch.Tensor:
+    """Render a [V]-batched camera -> [V, H, W, 4], one view after another.
+
+    The batch analog of the reference's camera-path cycling (`n`/`p` keys,
+    ref: src/app.cpp:650-674) and of its stereo two-view loop
+    (ref: src/app.cpp:603-607). Each view is exactly ``render`` of that
+    camera; autograd flows through the stack. The views are not batched into
+    one call: the tiled pipeline's capacities are per view, and the JAX
+    package measured its vmapped form slower than the sequential one.
+    """
+    return torch.stack([render(scene, Camera(cam_to_world=m, proj=p), config)
+                        for m, p in zip(cameras.cam_to_world, cameras.proj)])
 
 
 # Calibrated capacities quantize UP onto this geometric grid (x1.08 steps) so
@@ -315,16 +508,23 @@ def calibrate_config(scene: GaussianScene, cameras: Camera,
     The returned ``max_instance_mult`` is rounded UP onto the geometric
     ``bucket`` grid (see bucket_capacity_mult) so nearby demands produce an
     IDENTICAL config; pass bucket=1.0 for the exact (continuous) calibration.
+
+    With ``supersample > 1`` the demand and the capacity are those of the
+    rendered image, supersample x the width and height: render draws at that
+    size with this config's ``max_instance_mult``. (The JAX package sizes it
+    at the output size, so its calibrated supersampled renders drop
+    instances; ROADMAP queue 3.)
     """
     if config.sort_bands > 1:
         raise NotImplementedError(
             "sort_bands > 1 is not ported (ROADMAP queue 1 item 16)")
+    rendered = _rendered_config(config)
     n = scene.means.shape[0]
-    grid = TileGrid.create(width=config.width, height=config.height,
-                           num_splats=n, tile_size=config.tile_size)
+    grid = TileGrid.create(width=rendered.width, height=rendered.height,
+                           num_splats=n, tile_size=rendered.tile_size)
 
     def demand_of(cam: Camera) -> torch.Tensor:
-        d = prepare_splats(scene, cam, config)
+        d = prepare_splats(scene, cam, rendered)
         return instance_demand(d["mean2d"], d["extent"], grid)
 
     if cameras.cam_to_world.ndim == 2:
@@ -334,5 +534,5 @@ def calibrate_config(scene: GaussianScene, cameras: Camera,
             demand_of(Camera(cam_to_world=m, proj=p))
             for m, p in zip(cameras.cam_to_world, cameras.proj)
         ]).max()
-    mult = capacity_mult_for_demand(int(peak.item()), n, config, headroom, bucket)
+    mult = capacity_mult_for_demand(int(peak.item()), n, rendered, headroom, bucket)
     return dataclasses.replace(config, max_instance_mult=mult)

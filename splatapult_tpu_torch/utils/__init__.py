@@ -1,1 +1,1 @@
-"""Host-side helpers (image I/O)."""
+"""Host-side helpers (image I/O, the camera overlay)."""

@@ -104,10 +104,14 @@ def test_render_garden_matches_jax(garden_case):
     got = st.render(*_port_side(jscene, jcam, jcfg)).numpy()
     assert got[..., 3].max() > 0.5
     np.testing.assert_allclose(got, want, rtol=0, atol=3e-5)
-    # pipeline="auto" resolves to tiled only from 4096 splats up
+    # pipeline="auto" resolves to tiled only from 4096 splats up: this
+    # 2000-splat scene goes through the global pipeline, as in JAX
     scene, cam, cfg = _port_side(jscene, jcam, jcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.render(scene, cam, dataclasses.replace(cfg, pipeline="auto"))
+    auto = dataclasses.replace(cfg, pipeline="auto")
+    got_auto = st.render(scene, cam, auto)
+    assert torch.equal(got_auto, st.render(scene, cam, dataclasses.replace(cfg, pipeline="global")))
+    want_auto = np.asarray(jrender(jscene, jcam, dataclasses.replace(jcfg, pipeline="auto")))
+    np.testing.assert_allclose(got_auto.numpy(), want_auto, rtol=0, atol=3e-5)
 
 
 def test_render_auto_is_tiled_for_large_scene():
@@ -187,10 +191,15 @@ def test_config_and_profiles_match():
     {"supersample": 2}, {"sort_bands": 2}, {"pipeline": "global"},
 ], ids=lambda k: next(iter(k)))
 def test_deferred_knobs_raise_not_implemented(knob):
-    """Knobs of later slices raise naming their ROADMAP item. The row layouts
-    and bf16 accumulation are ported now: they render, near the exact image
-    (JAX's packed_feats16 contract, tests/test_tiled.py; tests/test_torch_packed.py
-    holds each against the JAX package)."""
+    """Knobs of later slices raise naming their ROADMAP item (sort_bands, a
+    TPU workaround that is not ported). The row layouts and bf16
+    accumulation are ported: they render, near the exact image (JAX's
+    packed_feats16 contract, tests/test_tiled.py; tests/test_torch_packed.py
+    holds each against the JAX package). Supersampling and the global
+    pipeline are ported: supersample=2 equals the 128x128 render box-filtered
+    down, and the global pipeline agrees with the tiled one to the tiled
+    kernel's tolerance (tests/test_torch_global.py holds both against the
+    JAX package)."""
     scene = make_debug_scene(device="cpu")
     cam = st.Camera.from_fov(
         tT.look_at(eye=[1.2, 1.1, 1.3], target=[0.3, 0.3, 0.3], up=[0, 1, 0]),
@@ -202,6 +211,21 @@ def test_deferred_knobs_raise_not_implemented(knob):
         assert img.dtype == torch.float32 and float(img[..., 3].max()) > 0.5
         diff = (img - exact).abs()
         assert float(diff.max()) < 0.05 and float(diff.mean()) < 2e-3
+        return
+    if next(iter(knob)) == "supersample":
+        img = st.render(scene, cam, cfg)
+        hi = st.render(scene, cam, dataclasses.replace(base, width=128, height=128))
+        assert img.shape == (64, 64, 4) and float(img[..., 3].max()) > 0.5
+        np.testing.assert_allclose(img.numpy(), hi.reshape(64, 2, 64, 2, 4).mean(dim=(1, 3)),
+                                   rtol=0, atol=1e-6)
+        return
+    if next(iter(knob)) == "pipeline":
+        img, tiled = st.render(scene, cam, cfg), st.render(scene, cam, base)
+        assert float(img[..., 3].max()) > 0.5
+        diff = (img - tiled).abs()
+        # the kernels' tolerance against their plain versions: the 1/256
+        # discard can flip single (splat, pixel) pairs
+        assert float(diff.max()) <= 5e-3 and float((diff > 1e-4).float().mean()) <= 1e-4
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         st.render(scene, cam, cfg)
