@@ -41,6 +41,15 @@ needs no network. It
    and each of the four kernels launched views x steps times: under the exact
    profile (train_full), the production profile (train_full_production) and,
    for fewer steps, with packed_feats16 forced on (train_full_feats16);
+   and with adaptive density (train_adaptive, exact profile): from every
+   other splat of the perturbed start (750,000) through
+   densify.fit_scene_adaptive, 12 steps with an event every 4, the default
+   DensifyConfig; every event must clone or split and grow the scene, no
+   chunk may drop an instance (the capacity is calibrated again after each
+   event), the loss must fall, the gradients of the first step after each
+   event be finite, each kernel launched views x steps times; then B1, B2
+   (both launches) and B3 against their plain versions and timed at the
+   grown shape;
 6. renders the same scene through the rest of the viewer, counters zeroed
    just before each: supersample 2 at 1920x1080 (3840x2160 inside,
    calibrated at that size; render_supersample), the 8-view orbit path
@@ -66,8 +75,8 @@ needs no network. It
    path --batch, render --camera-index --show-cameras, render --stereo
    --eye-tan-angles, render --supersample 2, render of a 2000-splat scene
    with the default --pipeline auto (global), points, export --prune, info,
-   save-pose (and the floor it saves in the next render), and fit against
-   the cameras.json with a <ply>_vr.json present.
+   save-pose (and the floor it saves in the next render), and fit and fit
+   --adaptive against the cameras.json with a <ply>_vr.json present.
 
 Each phase prints one JSON line; any failure raises and the exit code is not 0.
 The last line is {"ok": true, "device": {...}}.
@@ -158,6 +167,7 @@ KERNEL_COUNTERS = {"expand_fill": ("expand_fill",),
 LAYOUT_KNOBS = {"f32x16": {}, "i32x8": {"packed_colors": True}, "i32x4": {"packed_feats16": True}}
 N_RENDERS = 5
 TRAIN_VIEWS, TRAIN_STEPS_CALLBACK, TRAIN_STEPS_CHUNKED = 2, 4, 4
+ADAPTIVE_STEPS, ADAPTIVE_EVERY = 12, 4  # train_adaptive: densify events at steps 4 and 8
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative to the value, at most
 PATH_VIEWS = 8
 GLOBAL_SPLATS = 4000  # below 4096: pipeline="auto" picks the global pipeline
@@ -294,7 +304,7 @@ def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
     in this process, at width x height on the card: path, render --camera-index
     --show-cameras, render --stereo, render --supersample, render with the
     default --pipeline auto on a 2000-splat scene (global), points, export
-    --prune, info, save-pose, fit -> the phase's JSON."""
+    --prune, info, save-pose, fit, fit --adaptive -> the phase's JSON."""
     from splatapult_tpu_torch import kernels
     from splatapult_tpu_torch.io.gaussians import load_gaussian_ply, save_gaussian_ply
     from splatapult_tpu_torch.io.points import make_debug_points, save_point_ply
@@ -378,6 +388,22 @@ def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
         raise AssertionError(f"cli fit with cameras.json: {fit_line}")
     out["fit_cameras_json"] = {k: fit_line[k] for k in ("steps", "views", "loss_first",
                                                          "loss_last", "seconds")}
+    # the same fit with adaptive density: one event, at step 2
+    ad_line = json.loads(cli_in_process(
+        ["fit", dim, "--targets", os.path.join(tmp, "target_*.png"), "-o",
+         os.path.join(d, "fitted_adaptive.ply"), "--steps", "4", "--adaptive",
+         "--densify-every", "2"]).strip().splitlines()[-1])
+    events = ad_line["densify_events"]
+    if (len(events) != 1 or events[0]["cloned"] + events[0]["split"] < 1
+            or ad_line["splats"] != events[0]["num_splats"]
+            or ad_line["splats"] == scene.num_gaussians
+            or not math.isfinite(ad_line["loss_last"])):
+        raise AssertionError(f"cli fit --adaptive: {ad_line}")
+    if load_gaussian_ply(os.path.join(d, "fitted_adaptive.ply"),
+                         device="cpu").num_gaussians != ad_line["splats"]:
+        raise AssertionError("cli fit --adaptive wrote a .ply of the wrong size")
+    out["fit_adaptive"] = {k: ad_line[k] for k in ("steps", "views", "loss_first", "loss_last",
+                                                   "splats", "densify_events", "seconds")}
     return out
 
 
@@ -724,12 +750,15 @@ def main() -> int:
             raise AssertionError(f"{what}: against the exact frame with the same key {out}")
         return out
 
-    def composite_rows(cfg, launches_fwd, exact_tables=False):
+    def composite_rows(cfg, launches_fwd, exact_tables=False, at=None):
         """B2 and B3 at the full-size view's shapes in cfg's row layout:
         against their plain versions, timed, with their bounds -> (the two
         rows of the kernels line, extras). With ``exact_tables`` also B1's
-        row and the tail's timings (the layout does not touch either)."""
-        grid, table, bins, inst, tstart, nblk = kernel_inputs(scene, cam, cfg)
+        row and the tail's timings (the layout does not touch either).
+        ``at``: another (scene, camera) than the garden view."""
+        scene_at, cam_at = at or (scene, cam)
+        n = scene_at.num_gaussians
+        grid, table, bins, inst, tstart, nblk = kernel_inputs(scene_at, cam_at, cfg)
         layout, bf16 = layout_of(grid), is_bf16(grid)
         culled = int(bins["num_culled_instances"])
         if culled != 0:
@@ -987,6 +1016,121 @@ def main() -> int:
                 "peak_memory_bytes": train_peak, "num_culled_instances": train_culled,
                 "device": kind, "nvidia_smi_name_power_limit": smi}, train_launches
 
+    def adaptive_phase(cfg):
+        """densify.fit_scene_adaptive at full width: from every other splat of
+        the training start (750,000) towards renders of the true scene at the
+        two training views, ADAPTIVE_STEPS steps with a densify event every
+        ADAPTIVE_EVERY, DensifyConfig() defaults, counters zeroed just
+        before; then B1, B2 and B3 against their plain versions at the grown
+        shape (the final scene, the first view, its last calibration) ->
+        (the phase's JSON, the launch counts)."""
+        from splatapult_tpu_torch import densify
+
+        train_start = make_train_start()
+        start = dataclasses.replace(train_start, **{
+            f.name: getattr(train_start, f.name)[::2].contiguous()
+            for f in dataclasses.fields(train_start)})
+        del train_start
+        exact_train = dataclasses.replace(cfg, forward_only=False)
+        true_cfg = R.calibrate_config(scene, views, exact_train)
+        targets = torch.stack([R.render(scene, v, true_cfg) for v in view_list])
+        start_cfg = R.calibrate_config(start, views, exact_train)
+        # (scene, config) at the start of every chunk and at the end: their
+        # instance drops are counted after the run, outside the launch counts
+        chunk_starts = [(start, start_cfg)]
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        grads_after_event = {}
+        event_steps = set(range(ADAPTIVE_EVERY, ADAPTIVE_STEPS - ADAPTIVE_EVERY + 1,
+                                ADAPTIVE_EVERY))
+
+        def on_step(step, params, loss):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((f"step {step}", ev))
+            if step in event_steps:  # the first step after an event
+                grads_after_event[step] = {
+                    f.name: bool(torch.isfinite(getattr(params, f.name).grad).all())
+                    for f in dataclasses.fields(params)}
+
+        def on_event(event, params, config):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((f"event {event['step']}", ev))
+            chunk_starts.append((dataclasses.replace(params, **{
+                f.name: getattr(params, f.name).detach().clone()
+                for f in dataclasses.fields(params)}), config))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        marks[0][1].record()
+        fitted, losses, events = densify.fit_scene_adaptive(
+            start, views, targets, start_cfg, steps=ADAPTIVE_STEPS, densify_every=ADAPTIVE_EVERY,
+            callback=on_step, on_event=on_event)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        del targets
+        n_launch = TRAIN_VIEWS * ADAPTIVE_STEPS
+        if any(c != n_launch for c in launches.values()):
+            raise AssertionError(f"train_adaptive: kernel launches {launches}, expected "
+                                 f"{n_launch} each (views x steps)")
+        # times: each step, each chunk (from its start to its last step) and
+        # each event (densify + state carry + recalibration)
+        times = [(a[0], b[0], a[1].elapsed_time(b[1])) for a, b in zip(marks[:-1], marks[1:])]
+        step_ms = [ms for _, to, ms in times if to.startswith("step")]
+        event_ms = [ms for _, to, ms in times if to.startswith("event")]
+        chunk_ms = [sum(step_ms[i:i + ADAPTIVE_EVERY])
+                    for i in range(0, ADAPTIVE_STEPS, ADAPTIVE_EVERY)]
+        chunk_starts.append((fitted, chunk_starts[-1][1]))
+        culled = []
+        with torch.no_grad():
+            for sc, c in chunk_starts:
+                culled.append(sum(int(tiled.composite_tiled(
+                    R.prepare_splats(sc, v, c), c, return_aux=True)[1]["num_culled_instances"])
+                    for v in view_list))
+        sizes = [start.num_gaussians] + [e["num_splats"] for e in events]
+        per_event = [{**e, "splats_before": before,
+                      "max_instance_mult": c.max_instance_mult,
+                      "emax": tiled._grid_from_config(c, e["num_splats"]).emax,
+                      "event_ms": ms}
+                     for e, before, (_, c), ms in zip(events, sizes, chunk_starts[1:], event_ms)]
+        if [e["step"] for e in events] != sorted(event_steps):
+            raise AssertionError(f"train_adaptive: events at {[e['step'] for e in events]}")
+        for e in per_event:
+            if e["cloned"] + e["split"] < 1 or not e["num_splats"] > e["splats_before"]:
+                raise AssertionError(f"train_adaptive: an event did not grow the scene: {e}")
+        if any(culled):
+            raise AssertionError(f"train_adaptive: culled instances by chunk {culled}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train_adaptive: losses not finite or not falling: {losses}")
+        if sorted(grads_after_event) != sorted(event_steps) or not all(
+                all(ok.values()) for ok in grads_after_event.values()):
+            raise AssertionError(f"train_adaptive: gradients after the events {grads_after_event}")
+        # the kernels at the grown shape, against their plain versions
+        t_check = time.perf_counter()
+        final_cfg = dataclasses.replace(chunk_starts[-1][1], forward_only=True)
+        view0 = view_list[0]
+        rows, extra = composite_rows(final_cfg, None, exact_tables=True, at=(fitted, view0))
+        check_s = time.perf_counter() - t_check
+        del chunk_starts, fitted
+        return {"phase": "train_adaptive", "splats_start": start.num_gaussians,
+                "splats_end": sizes[-1], "views": TRAIN_VIEWS, "width": FULL_W,
+                "height": FULL_H, "profile": R.profile_name(start_cfg),
+                "steps": ADAPTIVE_STEPS, "densify_every": ADAPTIVE_EVERY,
+                "densify_config": dataclasses.asdict(densify.DensifyConfig()),
+                "max_instance_mult_start": start_cfg.max_instance_mult,
+                "emax_start": tiled._grid_from_config(start_cfg, start.num_gaussians).emax,
+                "events": per_event, "losses": losses,
+                "ms_per_step_median": statistics.median(step_ms), "ms_per_step_all": step_ms,
+                "ms_per_chunk": chunk_ms, "event_ms": event_ms,
+                "num_culled_instances_by_chunk_start_and_end": culled,
+                "first_step_after_event_grads_finite": grads_after_event,
+                "launches": launches, "peak_memory_bytes": peak,
+                "kernels_at_grown_shape": {r["name"]: r for r in rows},
+                "kernels_at_grown_shape_extra": extra, "kernel_check_seconds": check_s,
+                "device": kind, "nvidia_smi_name_power_limit": smi}, launches
+
     def fwd_launches(launches):
         return sum(launches[c] for c in KERNEL_COUNTERS["composite_fwd"])
 
@@ -1009,6 +1153,17 @@ def main() -> int:
             path: sum(counts[c] for c in KERNEL_COUNTERS[row["name"]])
             for path, counts in (("render_full", launches), ("train_full", train_launches))}
     emit(train_json)
+
+    # ---- phase 5b: adaptive density at full width (train_adaptive)
+    adaptive_json, adaptive_launches = adaptive_phase(cfg)
+    emit(adaptive_json)
+    for row in kernel_rows:
+        row["launches_by_path"]["train_adaptive"] = sum(
+            adaptive_launches[c] for c in KERNEL_COUNTERS[row["name"]])
+        grown = adaptive_json["kernels_at_grown_shape"][row["name"]]
+        row["at_train_adaptive_grown_shape"] = {
+            k: grown[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "shape")}
 
     # the production profile (i32x8 rows), then with packed_feats16 forced on
     # (i32x4 rows): a render phase, the kernels at its shapes, a training phase

@@ -357,7 +357,9 @@ def cmd_fit(args):
     Targets are PNGs in sorted-glob order; cameras come from a discovered
     cameras.json (the same convention as `path`) or, with --orbit or without
     a cameras.json, a generated orbit rig (_orbit_rig). A discovered
-    <ply>_vr.json is not applied: see the module docstring."""
+    <ply>_vr.json is not applied: see the module docstring. With --adaptive
+    the fit clones, splits and prunes every --densify-every steps
+    (densify.fit_scene_adaptive)."""
     import torch
 
     from splatapult_tpu_torch.io.gaussians import save_gaussian_ply
@@ -365,10 +367,6 @@ def cmd_fit(args):
     from splatapult_tpu_torch.train import fit_scene
     from splatapult_tpu_torch.utils.image import load_png
 
-    if args.adaptive:
-        raise NotImplementedError(
-            "fit --adaptive is not ported yet (ROADMAP queue 1 item 5: "
-            "adaptive density)")
     scene, cameras, floor, found = _load_scene_and_assets(args)
     if floor is not None:
         log.info("fit: the floor transform of %s is not applied (the cameras are "
@@ -411,14 +409,23 @@ def cmd_fit(args):
                         "generated orbit rig (pass --orbit to silence)")
     cfg = _calibrated(scene, batch, cfg)
     t0 = time.time()
-    scene, losses = fit_scene(scene, batch, targets, cfg, steps=args.steps,
-                              learning_rate=args.lr)
+    if args.adaptive:
+        from splatapult_tpu_torch.densify import DensifyConfig, fit_scene_adaptive
+
+        scene, losses, events = fit_scene_adaptive(
+            scene, batch, targets, cfg, steps=args.steps,
+            densify_every=args.densify_every, learning_rate=args.lr,
+            densify=DensifyConfig(max_splats=args.max_splats))
+    else:
+        scene, losses = fit_scene(scene, batch, targets, cfg, steps=args.steps,
+                                  learning_rate=args.lr)
+        events = []
     dt = time.time() - t0
     save_gaussian_ply(args.output, scene)
     print(json.dumps({
         "steps": args.steps, "views": len(paths),
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-        "splats": scene.num_gaussians, "densify_events": [],
+        "splats": scene.num_gaussians, "densify_events": events,
         "seconds": round(dt, 2), "output": args.output,
     }))
 
@@ -563,8 +570,10 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--adaptive", action="store_true",
-                   help="INRIA-style adaptive density control (not ported "
-                        "yet: raises)")
+                   help="INRIA-style adaptive density control "
+                        "(densify.py clone/split/prune)")
+    p.add_argument("--densify-every", type=int, default=100)
+    p.add_argument("--max-splats", type=int, default=8_000_000)
     p.add_argument("--orbit", action="store_true",
                    help="ignore cameras.json and fit against a generated "
                         "orbit rig (one view per target, same order targets "

@@ -6,8 +6,9 @@ top of it: render -> pixel loss -> gradients to every splat parameter -> Adam
 update, on one device.
 
 This is deliberately a *library* (fit_scene), not a full trainer binary: the
-splat count stays static. Adaptive density control and the multi-device
-training steps are not ported yet (ROADMAP queue 1 items 5 and 7).
+splat count stays static. Adaptive density control (densify.py) runs on top of
+_grad_stat_fit_steps' on-device gradient-norm accumulation. The multi-device
+training steps are not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -85,7 +86,53 @@ def default_optimizer(scene: GaussianScene, learning_rate: float) -> torch.optim
         betas=(0.9, 0.999), eps=1e-8)
 
 
+def leaf_copy(scene: GaussianScene) -> GaussianScene:
+    """A copy of the scene whose tensors are leaves that require grad."""
+    return GaussianScene(**{
+        f.name: getattr(scene, f.name).detach().clone().requires_grad_(True)
+        for f in dataclasses.fields(scene)})
+
+
+def detached(scene: GaussianScene) -> GaussianScene:
+    """The scene's tensors without their autograd history (no copy)."""
+    return GaussianScene(**{f.name: getattr(scene, f.name).detach()
+                            for f in dataclasses.fields(scene)})
+
+
+def _targets_on(targets, device) -> torch.Tensor:
+    if not isinstance(targets, torch.Tensor):
+        targets = torch.from_numpy(np.array(targets, dtype=np.float32))
+    return targets.to(device=device, dtype=torch.float32)
+
+
 _FIT_CHUNK = 32  # steps between two readbacks of the losses
+
+
+def _grad_stat_fit_steps(scene: GaussianScene, optimizer: torch.optim.Optimizer,
+                         cameras: Camera, targets, config: RenderConfig, steps: int,
+                         callback: Optional[Callable] = None, first_step: int = 0):
+    """``steps`` updates of the leaf scene in place that ALSO accumulate each
+    splat's positional-gradient norm on the device -> (losses [steps] and
+    gnorm_sum [N], both device tensors).
+
+    After each step's gradient (the mean over the views, as in train_step)
+    the L2 norm of every row of ``means.grad`` is added to an [N] float32
+    accumulator, then the optimizer steps. Nothing is read back unless a
+    ``callback(step, scene, loss)`` is given (as fit_scene's; ``step`` counts
+    from ``first_step``). Adaptive density control (densify.py) takes its
+    statistics from here.
+    """
+    acc = torch.zeros((scene.means.shape[0],), dtype=torch.float32,
+                      device=scene.means.device)
+    losses = []
+    for i in range(steps):
+        loss = _batch_value_and_grad(scene, cameras, targets, config)
+        acc += torch.linalg.vector_norm(scene.means.grad, dim=1)
+        optimizer.step()
+        losses.append(loss)
+        if callback is not None:
+            callback(first_step + i, scene, float(loss))
+    return torch.stack(losses), acc
 
 
 def fit_scene(scene: GaussianScene, cameras: Camera, targets, config: RenderConfig,
@@ -113,29 +160,21 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets, config: RenderConf
         raise NotImplementedError(
             "fit_scene(mesh=..., param_shard=...) is not ported yet (ROADMAP "
             "queue 1 item 7: multi-device)")
-    params = GaussianScene(**{
-        f.name: getattr(scene, f.name).detach().clone().requires_grad_(True)
-        for f in dataclasses.fields(scene)})
+    params = leaf_copy(scene)
     opt = (default_optimizer(params, learning_rate) if optimizer is None
            else optimizer(params))
-    if not isinstance(targets, torch.Tensor):
-        targets = torch.from_numpy(np.array(targets, dtype=np.float32))
-    targets = targets.to(device=params.means.device, dtype=torch.float32)
-
-    def current():
-        return GaussianScene(**{f.name: getattr(params, f.name).detach()
-                                for f in dataclasses.fields(params)})
+    targets = _targets_on(targets, params.means.device)
 
     losses = []
     if callback is not None:
         for step in range(steps):
             losses.append(float(train_step(params, opt, cameras, targets, config)))
             callback(step, params, losses[-1])
-        return current(), losses
+        return detached(params), losses
     done = 0
     while done < steps:
         n = min(_FIT_CHUNK, steps - done)
         chunk = [train_step(params, opt, cameras, targets, config) for _ in range(n)]
         losses.extend(torch.stack(chunk).cpu().tolist())
         done += n
-    return current(), losses
+    return detached(params), losses

@@ -359,6 +359,10 @@ def test_cli_host_commands_and_cameras_json_on_cpu(scene_dir, tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (line["steps"], line["views"], line["splats"]) == (4, 2, 1000)
     assert np.isfinite(line["loss_last"]) and line["loss_last"] < line["loss_first"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["fit", ply, "--targets", str(tmp_path / "target_*.png"), "--adaptive",
-                  "--device", "cpu"])
+    # adaptive density against the same cameras.json: one event, at step 1
+    cli.main(["fit", ply, "--targets", str(tmp_path / "target_*.png"), "-o",
+              str(tmp_path / "fitted_adaptive.ply"), "--adaptive", "--steps", "2",
+              "--densify-every", "1", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [e["step"] for e in line["densify_events"]] == [1]
+    assert line["splats"] == line["densify_events"][0]["num_splats"] != 1000

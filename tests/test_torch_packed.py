@@ -32,7 +32,9 @@ Tolerances, and why:
   1/256 discard can flip at its edge.
 """
 
+import concurrent.futures
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -62,6 +64,7 @@ from splatapult_tpu_torch.render import apply_profile
 # and an oversubscribed intra-op thread pool slows every worker down.
 torch.set_num_threads(1)
 
+JAX_FAST_COMPILE = {"xla_backend_optimization_level": 0}
 N, W, H = 2000, 96, 64
 GRID_KW = dict(width=W, height=H, num_splats=N, tile_size=16, block=8, max_instance_mult=4.0)
 LAYOUTS = {"packed_colors": {"packed_colors": True}, "packed_feats16": {"packed_feats16": True}}
@@ -186,37 +189,59 @@ def test_gather_rows_equals_row_indexing(layout):
     assert torch.equal(got.view(torch.int32), src[idx].view(torch.int32))
 
 
-@pytest.fixture(scope="module")
-def garden():
-    """Prepared 2k-garden splats -> JAX feats and bins, made once."""
-    scene = jmake_garden_scene(N, seed=0)
+@functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+def _prepared_garden(scene):
     cam = jgarden_cameras(1, width=W, height_px=H)
     d = jprepare_splats(scene, cam, JRenderConfig(width=W, height=H), sort=False)
     feats = jt.pack_features(d["mean2d"], d["conic"], d["rgb"], d["alpha"])
-    bins = jb.bin_splats(d["mean2d"], d["extent"], jb.TileGrid.create(**GRID_KW), depth=d["depth"])
+    return feats, jb.bin_splats(d["mean2d"], d["extent"], jb.TileGrid.create(**GRID_KW),
+                                depth=d["depth"])
+
+
+# the knobs of every JAX composite vjp this file compares with
+VJP_KNOBS = {**LAYOUTS, "bf16_tail": {"grad_sort_dtype": "bfloat16"}}
+
+
+@pytest.fixture(scope="module")
+def garden():
+    """Prepared 2k-garden splats -> JAX feats and bins (one compiled program),
+    and the JAX composite's rows and feats cotangent under each of VJP_KNOBS
+    (one compiled program each, compiled in parallel while the next one is
+    traced: tracing holds the GIL, XLA's compiling does not)."""
+    feats, bins = jax.tree.map(np.asarray, _prepared_garden(jmake_garden_scene(N, seed=0)))
     dout = np.random.default_rng(9).standard_normal(
         (jb.TileGrid.create(**GRID_KW).num_tiles, 8, 256)).astype(np.float32)
-    return {"feats": feats, "bins": bins, "dout": dout}
+    vjps = {}
+    with concurrent.futures.ThreadPoolExecutor(len(VJP_KNOBS)) as pool:
+        for name, knobs in VJP_KNOBS.items():
+            jgrid = jb.TileGrid.create(**GRID_KW, **knobs)
+
+            def rows_and_grad(f, bins, dout, jgrid=jgrid):
+                out, vjp = jax.vjp(lambda f: jc.composite_from_feats(f, bins, jgrid), f)
+                return out.astype(jnp.float32), vjp(dout.astype(out.dtype))[0]
+
+            program = jax.jit(rows_and_grad, compiler_options=JAX_FAST_COMPILE)
+            vjps[name] = pool.submit(program.lower(feats, bins, dout).compile)
+        vjps = {name: jax.tree.map(np.asarray, exe.result()(feats, bins, dout))
+                for name, exe in vjps.items()}
+    return {"feats": feats, "bins": bins, "dout": dout, "jax_vjps": vjps}
 
 
-def _vjp_both(garden, **knobs):
+def _vjp_both(garden, name):
     """JAX's and the port's composite rows and feats cotangent on the same
-    inputs -> (rows_port, rows_jax, grad_port, grad_jax, grid)."""
-    jgrid = jb.TileGrid.create(**GRID_KW, **knobs)
-    grid = tb.TileGrid.create(**GRID_KW, **knobs)
-    out, vjp = jax.vjp(lambda f: jc.composite_from_feats(f, garden["bins"], jgrid),
-                       garden["feats"])
-    want_grad = np.asarray(vjp(jnp.asarray(garden["dout"]).astype(out.dtype))[0])
+    inputs under VJP_KNOBS[name] -> (rows_port, rows_jax, grad_port,
+    grad_jax, grid)."""
+    grid = tb.TileGrid.create(**GRID_KW, **VJP_KNOBS[name])
+    want_rows, want_grad = garden["jax_vjps"][name]
     feats = _t(garden["feats"]).requires_grad_(True)
     rows = tc.composite_from_feats(feats, _torch_bins(garden["bins"]), grid)
     rows.backward(_t(garden["dout"]).to(rows.dtype))
-    return (rows.detach(), np.asarray(out.astype(jnp.float32)), feats.grad.numpy(), want_grad,
-            grid)
+    return rows.detach(), want_rows, feats.grad.numpy(), want_grad, grid
 
 
 @pytest.fixture(scope="module", params=sorted(LAYOUTS))
 def layout_case(request, garden):
-    return request.param, _vjp_both(garden, **LAYOUTS[request.param])
+    return request.param, _vjp_both(garden, request.param)
 
 
 def test_packed_forward_matches_jax(garden, layout_case):
@@ -258,7 +283,7 @@ def test_packed_rows_decode_like_the_quantized_exact_rows(garden, layout_case):
 
 @pytest.fixture(scope="module")
 def bf16_tail(garden):
-    return _vjp_both(garden, grad_sort_dtype="bfloat16")
+    return _vjp_both(garden, "bf16_tail")
 
 
 def test_bf16_tail_matches_jax(bf16_tail):
@@ -307,6 +332,11 @@ def test_bf16_backward_from_checkpoints_is_its_own_rounding(garden):
     _close_by_column(from_ckpt, own, 1e-6, axis=1)
 
 
+@functools.partial(jax.jit, static_argnames="jcfg", compiler_options=JAX_FAST_COMPILE)
+def _jrender_compiled(jscene, jcam, jcfg):
+    return jrender(jscene, jcam, jcfg)
+
+
 def _debug_case():
     jcam = JCamera.from_fov(
         jT.look_at(eye=[1.2, 1.1, 1.3], target=[0.3, 0.3, 0.3], up=[0, 1, 0]),
@@ -326,7 +356,7 @@ def _port_side(jscene, jcam, jcfg):
 def test_bf16_accumulation_matches_jax():
     jscene, jcam, jcfg = _debug_case()
     jbf = dataclasses.replace(jcfg, accum_dtype="bfloat16")
-    want = np.asarray(jrender(jscene, jcam, jbf))
+    want = np.asarray(_jrender_compiled(jscene, jcam, jbf))
     scene, cam, cfg = _port_side(jscene, jcam, jbf)
     for name in ("means", "sh", "opacities"):
         getattr(scene, name).requires_grad_(True)
@@ -352,7 +382,7 @@ def test_production_render_matches_jax():
     jcam = jgarden_cameras(1, width=W, height_px=H)
     jcfg = japply_profile(JRenderConfig(width=W, height=H, pipeline="tiled", tile_size=16,
                                         tile_block=8, max_instance_mult=4.0), "production")
-    want = np.asarray(jrender(jscene, jcam, jcfg))
+    want = np.asarray(_jrender_compiled(jscene, jcam, jcfg))
     scene, cam, cfg = _port_side(jscene, jcam, jcfg)
     assert cfg == apply_profile(dataclasses.replace(cfg, packed_colors=False), "production")
     got = st.render(scene, cam, cfg).numpy()
@@ -373,8 +403,10 @@ def test_production_fit_losses_match_jax():
         for a in np.linspace(0.3, 1.5, 2)]
     jcams = JCamera(cam_to_world=jnp.stack([c.cam_to_world for c in cams]),
                     proj=jnp.stack([c.proj for c in cams]))
-    targets = jnp.stack([jrender(true, JCamera(cam_to_world=m, proj=p), exact)
-                         for m, p in zip(jcams.cam_to_world, jcams.proj)])
+    targets = jax.jit(lambda true, jcams: jnp.stack([
+        jrender(true, JCamera(cam_to_world=m, proj=p), exact)
+        for m, p in zip(jcams.cam_to_world, jcams.proj)]),
+        compiler_options=JAX_FAST_COMPILE)(true, jcams)
     rng = np.random.default_rng(0)
     start = JGaussianScene(
         means=true.means + jnp.asarray(rng.normal(0, 0.03, (16, 3)), jnp.float32),

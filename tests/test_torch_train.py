@@ -17,7 +17,9 @@ packages, which the loss barely sees; positions and colours, whose gradients
 are well above the noise, agree to 1e-5 after the 5 steps.
 """
 
+import concurrent.futures
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -48,6 +50,7 @@ torch.set_num_threads(1)
 
 FIELDS = ("means", "sh", "opacities", "log_scales", "quats")
 GRAD_REL_TOL = 2e-4
+JAX_FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
 def _random_64():
@@ -96,24 +99,58 @@ def _port_grads(scene, cam, cfg, target):
     return float(loss.detach()), grads
 
 
+def _grads_program(jcam, jcfg, target):
+    """jax.value_and_grad of the L2 loss over the scene and cam_to_world, one
+    compiled program."""
+    jtarget = jnp.asarray(target)
+
+    def loss(s, c2w):
+        img = jrender(s, JCamera(cam_to_world=c2w, proj=jcam.proj), jcfg)
+        return jnp.mean((img - jtarget) ** 2)
+
+    return jax.jit(jax.value_and_grad(loss, argnums=(0, 1)), compiler_options=JAX_FAST_COMPILE)
+
+
+def _jax_fit():
+    start, jcams, targets, jcfg = _fit_case()
+    return jfit_scene(start, jcams, targets, jcfg, steps=5, learning_rate=2e-2)
+
+
 @pytest.fixture(scope="module")
-def grad_cases():
+def jax_refs():
+    """Every JAX reference of this file, compiled in parallel (tracing holds
+    the GIL, XLA's compiling does not): the gradients of both grad cases and
+    fit_scene over 5 steps of the fit case (in a second thread, while this
+    one traces the gradient programs) -> {"grads": {case: (loss, {field:
+    grad}), "targets": {case: target}}, "fit": (fitted scene, losses)}."""
+    out = {"grads": {}, "targets": {}}
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        fit = pool.submit(_jax_fit)
+        compiled = {}
+        for name, (jscene, jcam, jcfg) in (("random64", _random_64()),
+                                           ("garden2k", _garden_2k())):
+            target = np.random.default_rng(7).uniform(
+                size=(jcfg.height, jcfg.width, 4)).astype(np.float32)
+            lowered = _grads_program(jcam, jcfg, target).lower(jscene, jcam.cam_to_world)
+            compiled[name] = (pool.submit(lowered.compile), jscene, jcam.cam_to_world)
+            out["targets"][name] = target
+        for name, (exe, jscene, c2w) in compiled.items():
+            jloss, (gs, gc) = exe.result()(jscene, c2w)
+            want = {f: np.asarray(getattr(gs, f)) for f in FIELDS}
+            want["cam_to_world"] = np.asarray(gc)
+            out["grads"][name] = (float(jloss), want)
+        out["fit"] = fit.result()
+    return out
+
+
+@pytest.fixture(scope="module")
+def grad_cases(jax_refs):
     """Both packages' gradients on both cases, computed once."""
     out = {}
-    for name, (jscene, jcam, jcfg) in (("random64", _random_64()), ("garden2k", _garden_2k())):
-        target = np.random.default_rng(7).uniform(
-            size=(jcfg.height, jcfg.width, 4)).astype(np.float32)
-        jtarget = jnp.asarray(target)
-
-        def loss(s, c2w):
-            img = jrender(s, JCamera(cam_to_world=c2w, proj=jcam.proj), jcfg)
-            return jnp.mean((img - jtarget) ** 2)
-
-        jloss, (gs, gc) = jax.value_and_grad(loss, argnums=(0, 1))(jscene, jcam.cam_to_world)
-        want = {f: np.asarray(getattr(gs, f)) for f in FIELDS}
-        want["cam_to_world"] = np.asarray(gc)
-        got_loss, got = _port_grads(*_port_side(jscene, jcam, jcfg), target)
-        out[name] = {"want": want, "got": got, "loss": (got_loss, float(jloss))}
+    for name, case in (("random64", _random_64()), ("garden2k", _garden_2k())):
+        jloss, want = jax_refs["grads"][name]
+        got_loss, got = _port_grads(*_port_side(*case), jax_refs["targets"][name])
+        out[name] = {"want": want, "got": got, "loss": (got_loss, jloss)}
     return out
 
 
@@ -212,6 +249,12 @@ def test_forward_only_render_cannot_be_differentiated():
     assert float((grads[0] - grads[1]).abs().max()) <= 1.5e-2 * scale
 
 
+@functools.partial(jax.jit, static_argnames="jcfg", compiler_options=JAX_FAST_COMPILE)
+def _render_views(scene, jcams, jcfg):
+    return jnp.stack([jrender(scene, JCamera(cam_to_world=m, proj=p), jcfg)
+                      for m, p in zip(jcams.cam_to_world, jcams.proj)])
+
+
 def _fit_case():
     """Debug scene, two 32 x 32 views, targets rendered by the JAX package from
     the true scene; the start is a perturbed copy."""
@@ -224,8 +267,7 @@ def _fit_case():
         for a in np.linspace(0.3, 1.5, 2)]
     jcams = JCamera(cam_to_world=jnp.stack([c.cam_to_world for c in cams]),
                     proj=jnp.stack([c.proj for c in cams]))
-    targets = jnp.stack([jrender(true, JCamera(cam_to_world=m, proj=p), jcfg)
-                         for m, p in zip(jcams.cam_to_world, jcams.proj)])
+    targets = _render_views(true, jcams, jcfg)
     rng = np.random.default_rng(0)
     start = JGaussianScene(
         means=true.means + jnp.asarray(rng.normal(0, 0.03, (16, 3)), jnp.float32),
@@ -235,9 +277,9 @@ def _fit_case():
 
 
 @pytest.fixture(scope="module")
-def fit_runs():
+def fit_runs(jax_refs):
     start, jcams, targets, jcfg = _fit_case()
-    jfitted, jlosses = jfit_scene(start, jcams, targets, jcfg, steps=5, learning_rate=2e-2)
+    jfitted, jlosses = jax_refs["fit"]
     scene, cams, cfg = _port_side(start, jcams, jcfg)
     before = convert.scene_to_numpy(scene)
     fitted, losses = train.fit_scene(scene, cams, np.asarray(targets), cfg, steps=5,
@@ -339,8 +381,16 @@ def test_cli_fit_on_cpu(tmp_path, capsys):
     assert line["loss_last"] < line["loss_first"]
     fitted = load_gaussian_ply(out, device="cpu")
     assert fitted.num_gaussians == 400 and not torch.equal(fitted.sh, start.sh)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        cli.main(["fit", ply, "--targets", str(tmp_path / "t*.png"), "--adaptive",
-                  "--device", "cpu"])
+    # the same fit with adaptive density: an event at step 2 changes the count
+    cli.main(["fit", ply, "--targets", str(tmp_path / "t*.png"), "-o", out, "--steps", "4",
+              "--lr", "0.02", "--tile-size", "16", "--device", "cpu", "--adaptive",
+              "--densify-every", "2", "--max-splats", "100000"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    events = line["densify_events"]
+    assert len(events) == 1 and events[0]["step"] == 2
+    assert events[0]["cloned"] + events[0]["split"] > 0
+    assert line["splats"] == events[0]["num_splats"] != 400
+    assert np.isfinite([line["loss_first"], line["loss_last"]]).all()
+    assert load_gaussian_ply(out, device="cpu").num_gaussians == line["splats"]
     with pytest.raises(SystemExit):
         cli.main(["fit", ply, "--targets", str(tmp_path / "none*.png"), "--device", "cpu"])
