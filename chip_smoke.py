@@ -57,7 +57,23 @@ needs no network. It
    render_batch, differentiated once (render_stereo); each view equal to
    render() of its camera alone bit for bit, the supersampled frame to the
    3840x2160 frame box-filtered down, and B1 and both composite forward
-   launches held against their plain versions on the 3840x2160 grid;
+   launches held against their plain versions on the 3840x2160 grid; then
+   shared binning against per-view rendering of the same views: the view's
+   symmetric stereo pair (ipd 0.064) binned once through
+   stereo.render_stereo against render_batch of the two eyes
+   (render_stereo_shared: forward and forward + backward of mean(img ** 2)
+   timed, the production profile's forward too, capacities, peak memory,
+   what the per-eye capacity drops on the union; each eye, in both
+   profiles, equal to render() of it within the composite tolerance), and
+   four path views 0.02 rad apart on the garden orbit through
+   cluster.render_path_clustered in clusters of 2 and of 4 against
+   render_batch (render_cluster: timed the same way; each view's difference
+   from its per-view frame printed, the reference views held to the
+   composite tolerance; the "auto" gate's decision); at the stereo union
+   (exact and production rows), the k=2 and the k=4 union B1 bit for bit
+   and B2's two launches (and, on the paths that run it, B3) against their
+   plain versions, on rows of splats that the view culls (B3 must give them
+   exactly zero), and no instance dropped under the union calibration;
 7. checks the output: finite, the expected shape, agreeing with the
    JAX-made golden images under tests/golden/ on the two small scenes, the
    GPU render agreeing with the port's CPU render (exact and production),
@@ -73,7 +89,8 @@ needs no network. It
    bench --profile production and fit (orbit rig) in subprocesses; then, in
    this process, beside a cameras.json of orbit views: path --every 2 and
    path --batch, render --camera-index --show-cameras, render --stereo
-   --eye-tan-angles, render --supersample 2, render of a 2000-splat scene
+   --eye-tan-angles, render --stereo --shared-bins (one binning, within one
+   8-bit step of the per-eye PNG), render --supersample 2, render of a 2000-splat scene
    with the default --pipeline auto (global), points, export --prune, info,
    save-pose (and the floor it saves in the next render), and fit and fit
    --adaptive against the cameras.json with a <ply>_vr.json present.
@@ -135,7 +152,12 @@ oracle, the bounds of tests/test_render.py (mean < 5e-5, 99.5th percentile <
 gradients against the CPU's, within 2e-4 of each field's largest.
 Supersample: equal to the 3840x2160 frame box-filtered down within 1e-6.
 render_batch views and stereo eyes: equal to render() of the camera alone,
-bit for bit.
+bit for bit. Shared binning: a shared-stereo eye, and each cluster's
+reference view, against render() of that view, the composite tolerance
+(longer chains cut into segments elsewhere change the float association);
+under the production profile the mean abs <= 2e-3 of the production contract
+(the 20-bit key orders both eyes by the left eye's depth); a cluster's other
+views are an approximation (view 0's depth order) and are printed, not held.
 """
 
 from __future__ import annotations
@@ -170,6 +192,8 @@ TRAIN_VIEWS, TRAIN_STEPS_CALLBACK, TRAIN_STEPS_CHUNKED = 2, 4, 4
 ADAPTIVE_STEPS, ADAPTIVE_EVERY = 12, 4  # train_adaptive: densify events at steps 4 and 8
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative to the value, at most
 PATH_VIEWS = 8
+STEREO_IPD = 0.064
+CLUSTER_VIEWS, CLUSTER_STEP = 4, 0.02  # rad between path views: about 1.15 degrees
 GLOBAL_SPLATS = 4000  # below 4096: pipeline="auto" picks the global pipeline
 # The global pipeline's backward at 1024x768 keeps each 64-splat block's
 # incoming (colour, T) carry, 63 x 786432 x 16 B = 0.8 GB, and recomputes one
@@ -302,7 +326,8 @@ def cli_in_process(args) -> str:
 def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
     """The CLI commands that discover a cameras.json and a <ply>_vr.json,
     in this process, at width x height on the card: path, render --camera-index
-    --show-cameras, render --stereo, render --supersample, render with the
+    --show-cameras, render --stereo (--eye-tan-angles, and --shared-bins
+    against the per-eye PNG), render --supersample, render with the
     default --pipeline auto on a 2000-splat scene (global), points, export
     --prune, info, save-pose, fit, fit --adaptive -> the phase's JSON."""
     from splatapult_tpu_torch import kernels
@@ -343,6 +368,20 @@ def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
                     "-0.75", "0.45", "0.41", "-0.41", "-0.45", "0.75", "0.41", "-0.41", *size])
     if load_png(png("st.png")).shape != (height, 2 * width, 3):
         raise AssertionError("cli render --stereo: not twice as wide")
+    # --shared-bins (20,000 splats: auto picks the tiled pipeline) bins once
+    # for both eyes: one B1 launch, and a PNG within one 8-bit step of the
+    # per-eye one
+    cli_in_process(["render", ply, "-o", png("pe.png"), "--stereo", *size])
+    kernels.reset_launch_counts()
+    cli_in_process(["render", ply, "-o", png("sb.png"), "--stereo", "--shared-bins", *size])
+    out["stereo_shared_bins_launches"] = dict(kernels.LAUNCH_COUNTS)
+    shared, per_eye = load_png(png("sb.png")), load_png(png("pe.png"))
+    out["stereo_shared_bins_png_max_abs_diff_vs_per_eye"] = float(np.abs(shared - per_eye).max())
+    if (shared.shape != (height, 2 * width, 3)
+            or out["stereo_shared_bins_launches"]["expand_fill"] != 1
+            or out["stereo_shared_bins_launches"]["composite_fwd_segments"] != 2
+            or not out["stereo_shared_bins_png_max_abs_diff_vs_per_eye"] <= 1.0 / 255.0 + 1e-6):
+        raise AssertionError(f"cli render --stereo --shared-bins: {out}")
     cli_in_process(["render", ply, "-o", png("ss.png"), "--supersample", "2", *size])
     if load_png(png("ss.png")).shape != (height, width, 3):
         raise AssertionError("cli render --supersample 2: wrong size")
@@ -421,6 +460,7 @@ def main() -> int:
     from splatapult_tpu_torch.core import transforms as T
     from splatapult_tpu_torch.ops import binning as B, composite as C, tiled
     from splatapult_tpu_torch import train
+    from splatapult_tpu_torch.tools.profile_phases import _profile as profile_device
     from splatapult_tpu_torch.tools.profile_phases import touched_shares
 
     # the package re-exports the render() function under the module's name
@@ -1229,8 +1269,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return result, dict(kernels.LAUNCH_COUNTS)
 
-    def want_launches(what, got, views, backward=False):
+    def want_launches(what, got, views, backward=False, binnings=None):
+        """Each view's composite launched once (its two forward kernels, and
+        B3 with ``backward``), B1 once per binning (one per view unless the
+        views share binnings)."""
         want = {k: v * views for k, v in fwd_once.items()}
+        if binnings is not None:
+            want["expand_fill"] = binnings
         if backward:
             want["composite_bwd"] = views
         if got != want:
@@ -1366,6 +1411,360 @@ def main() -> int:
             f"{counter}_max_abs_err"]
     kernel_rows[2]["launches_by_path"]["render_stereo_backward"] = (
         pair_bwd_launches["composite_bwd"])
+
+    # ---- phase 6b: shared binning (stereo.py, cluster.py) against per-view
+    # rendering of the same views
+    from splatapult_tpu_torch import cluster as CL, stereo as ST
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    leaf = dataclasses.replace(scene, **{f.name: getattr(scene, f.name).detach().clone()
+                                         .requires_grad_(True)
+                                         for f in dataclasses.fields(scene)})
+
+    def loss_step(render_fn):
+        """-> fn(): forward and backward of mean(render_fn(leaf) ** 2)."""
+        def step():
+            for f in dataclasses.fields(leaf):
+                getattr(leaf, f.name).grad = None
+            (render_fn(leaf) ** 2).mean().backward()
+        return step
+
+    def timed(fn, per=1):
+        """fn() by CUDA events (median of N_RENDERS after two warm-ups: the
+        device timeline from the first launch to the last, host gaps
+        included) and by the profiler (device busy time and kernel launches
+        of one more call), each divided by ``per`` -> dict."""
+        med, all_ms = frame_ms(fn)
+        prof = profile_device(fn, 1, med)
+        return {"ms_median": med / per, "ms_all": [t / per for t in all_ms],
+                "device_busy_ms": prof["device_busy_ms"] / per, "idle_share": prof["idle_share"],
+                "device_kernel_launches": prof["device_kernel_launches"] / per,
+                "own_kernels_device_ms": {k: v / per
+                                          for k, v in prof["own_kernels_device_ms"].items()}}
+
+    def leaf_grads_ok(what):
+        g = {f.name: float(getattr(leaf, f.name).grad.abs().max()) for f in dataclasses.fields(leaf)}
+        if not all(math.isfinite(v) and v > 0.0 for v in g.values()):
+            raise AssertionError(f"{what}: gradients {g}")
+        return g
+
+    def shared_view_rows(d, bins, grid):
+        """The instance rows one view composites from shared bins -> (rows,
+        tile_start, tile_nblk, the slots of splats the view culls)."""
+        splat = bins["inst_splat"].long()
+        inst = C.gather_rows(C.pack_src(CL.shared_features(d), grid), splat)
+        start, nblk = C.tile_block_ranges(bins["tile_count"], grid.block)
+        n_ = d["mask"].shape[0]
+        culled = (splat < n_) & ~d["mask"][splat.clamp_max(n_ - 1)]
+        return inst, start, nblk, culled
+
+    def shared_kernels_close(ds, union, grid, views, what, backward=True):
+        """B1 on the union table bit for bit against its plain version; B2's
+        two launches against theirs for each view of ``views``, and (with
+        ``backward``) B3 against composite_bwd_plain for the last of them,
+        whose rows of culled splats must get exactly zero in all nine
+        columns; each timed at this shape -> the errors, times and shapes."""
+        um, ue = union
+        depth = ds[0]["depth"]
+        table = B.expand_table(um, ue, grid, depth)
+        bins = B.bin_splats(um, ue, grid, depth)
+        e_args = (table["ends"], table["tile0"], table["nx"], table["dbits"], grid.emax,
+                  grid.tiles_x)
+        got, want = B.expand_fill(*e_args), B.expand_fill_plain(*e_args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"expand_fill != plain version ({what})")
+        out = {"expand_fill_max_abs_err": float((got - want).abs().max()),
+               "expand_fill_ms": event_ms(lambda: B.expand_fill(*e_args), 10),
+               "emax": grid.emax, "mcap": grid.mcap,
+               "filled_slots": int(table["ends"][-1]),
+               "num_culled_instances": int(bins["num_culled_instances"]), "views": {}}
+        del got, want
+        for v in views:
+            inst, start, nblk, culled = shared_view_rows(ds[v], bins, grid)
+            res = {"rows_of_splats_culled_in_this_view": int(culled.sum()),
+                   "deepest_tile_blocks": int(nblk.max()),
+                   **check_fwd_passes(inst, start, nblk, grid, f"{what} view {v}"),
+                   "composite_fwd_ms": event_ms(lambda: C.composite_fwd(inst, start, nblk, grid),
+                                                10)}
+            if backward and v == views[-1]:
+                fwd, seg = C.composite_fwd(inst, start, nblk, grid, checkpoints=True)
+                dout = seeded_cotangent(fwd)
+                d_inst = C.composite_bwd(inst, start, nblk, fwd, dout, grid, seg)
+                d_ref = C.composite_bwd_plain(inst, start, nblk, fwd, dout, grid)
+                torch.cuda.synchronize()
+                res["composite_bwd_max_scaled_err"] = grad_cols_close(
+                    d_inst, d_ref, f"composite_bwd ({what} view {v})")
+                res["composite_bwd_culled_rows_abs_max"] = float(d_inst[:, culled].abs().max()) \
+                    if bool(culled.any()) else 0.0
+                if res["composite_bwd_culled_rows_abs_max"] != 0.0:
+                    raise AssertionError(f"composite_bwd ({what} view {v}): rows of culled "
+                                         f"splats got {res['composite_bwd_culled_rows_abs_max']}")
+                res["composite_bwd_ms"] = event_ms(
+                    lambda: C.composite_bwd(inst, start, nblk, fwd, dout, grid, seg), 10)
+                del fwd, seg, dout, d_inst, d_ref
+            out["views"][v] = res
+            del inst, start, nblk, culled
+        return out
+
+    # the stereo pair, symmetric frusta (the shared path needs them), at the
+    # garden view: one shared binning against render_batch of the two eyes
+    t_phase = time.perf_counter()
+    eyes = ST._eye_cameras(cam, STEREO_IPD)
+    sym_pair = cam.stereo_pair(STEREO_IPD)
+    st_cfg = ST.calibrate_config_stereo(scene, cam, cfg, STEREO_IPD)
+    pe_cfg = R.calibrate_config(scene, sym_pair, cfg)
+    st_train = dataclasses.replace(st_cfg, forward_only=False)
+    pe_train = dataclasses.replace(pe_cfg, forward_only=False)
+    with torch.no_grad():
+        d_l, d_r, st_um, st_ue = ST.stereo_prepare(scene, cam, cfg, STEREO_IPD)
+        st_demand = int(B.instance_demand(st_um, st_ue, tiled._grid_from_config(cfg, n)))
+        eye_demand = [int(B.instance_demand(d["mean2d"], d["extent"],
+                                            tiled._grid_from_config(cfg, n))) for d in (d_l, d_r)]
+        # what the per-view capacity drops on the union
+        dropped_per_view_cap = int(B.bin_splats(st_um, st_ue, tiled._grid_from_config(pe_cfg, n),
+                                                d_l["depth"])["num_culled_instances"])
+    st_imgs, st_launches = counted(lambda: ST.render_stereo(scene, cam, st_cfg, STEREO_IPD))
+    want_launches("render_stereo_shared", st_launches, 2, binnings=1)
+    if st_imgs.shape != (2, FULL_H, FULL_W, 4) or not bool(torch.isfinite(st_imgs).all()):
+        raise AssertionError("render_stereo_shared: wrong shape or non-finite values")
+    st_eye_err = [composite_close(st_imgs[e], R.render(scene, eyes[e], pe_cfg),
+                                  f"render_stereo_shared: eye {e} against render() of it")
+                  for e in range(2)]
+    pe_imgs, pe_launches = counted(lambda: R.render_batch(scene, sym_pair, pe_cfg))
+    want_launches("render_stereo per eye", pe_launches, 2)
+    del st_imgs, pe_imgs
+    _, st_bwd_launches = counted(loss_step(lambda p: ST.render_stereo(p, cam, st_train,
+                                                                      STEREO_IPD)))
+    want_launches("render_stereo_shared backward", st_bwd_launches, 2, backward=True,
+                  binnings=1)
+    st_grads = leaf_grads_ok("render_stereo_shared backward")
+    st_ms = {
+        "shared_forward": timed(lambda: ST.render_stereo(scene, cam, st_cfg, STEREO_IPD)),
+        "per_eye_forward": timed(lambda: R.render_batch(scene, sym_pair, pe_cfg)),
+        "shared_forward_backward": timed(loss_step(
+            lambda p: ST.render_stereo(p, cam, st_train, STEREO_IPD))),
+        "per_eye_forward_backward": timed(loss_step(
+            lambda p: R.render_batch(p, sym_pair, pe_train)))}
+    st_peak = {
+        "shared_forward": peak_bytes(lambda: ST.render_stereo(scene, cam, st_cfg, STEREO_IPD)),
+        "per_eye_forward": peak_bytes(lambda: R.render_batch(scene, sym_pair, pe_cfg)),
+        "shared_forward_backward": peak_bytes(loss_step(
+            lambda p: ST.render_stereo(p, cam, st_train, STEREO_IPD))),
+        "per_eye_forward_backward": peak_bytes(loss_step(
+            lambda p: R.render_batch(p, sym_pair, pe_train)))}
+    # the production profile, forward only: packed_colors' i32x8 rows carry
+    # the culled rows too
+    prod_base = R.apply_profile(base, "production")
+    st_prod = ST.calibrate_config_stereo(scene, cam, prod_base, STEREO_IPD)
+    pe_prod = R.calibrate_config(scene, sym_pair, prod_base)
+    st_prod_imgs, st_prod_launches = counted(
+        lambda: ST.render_stereo(scene, cam, st_prod, STEREO_IPD))
+    want_launches("render_stereo_shared production", st_prod_launches, 2, binnings=1)
+    st_prod_grid = tiled._grid_from_config(st_prod, n)
+    st_prod_vs_eye = {"max_abs": [], "mean_abs": []}
+    for e in range(2):
+        eye_img = R.render(scene, eyes[e], pe_prod)
+        st_prod_vs_eye["max_abs"].append(composite_close(
+            st_prod_imgs[e], eye_img, f"render_stereo_shared production: eye {e} against "
+            f"render() of it", is_bf16(st_prod_grid)))
+        st_prod_vs_eye["mean_abs"].append(float((st_prod_imgs[e] - eye_img).abs().mean()))
+        del eye_img
+    del st_prod_imgs
+    st_prod_ms = {
+        "shared_forward": timed(lambda: ST.render_stereo(scene, cam, st_prod, STEREO_IPD)),
+        "per_eye_forward": timed(lambda: R.render_batch(scene, sym_pair, pe_prod))}
+    t_check = time.perf_counter()
+    with torch.no_grad():
+        st_kernels = shared_kernels_close((d_l, d_r), (st_um, st_ue),
+                                          tiled._grid_from_config(st_cfg, n), [0, 1],
+                                          "render_stereo_shared union")
+        # the production path's shapes: i32x8 rows, the 20-bit key and the
+        # early stop on the union lists (forward only, as that path runs)
+        st_prod_kernels = shared_kernels_close((d_l, d_r), (st_um, st_ue), st_prod_grid,
+                                               [0, 1], "render_stereo_shared production union",
+                                               backward=False)
+    st_check_s = time.perf_counter() - t_check
+    for res in (st_kernels, st_prod_kernels):
+        if res["num_culled_instances"] != 0:
+            raise AssertionError(f"render_stereo_shared: {res['num_culled_instances']} "
+                                 f"instances dropped under the union calibration")
+    del d_l, d_r, st_um, st_ue
+
+    def capacity(c, demand):
+        return {"max_instance_mult": c.max_instance_mult,
+                "emax": tiled._grid_from_config(c, n).emax, "filled_slots": demand,
+                "instances_per_splat": demand / n}
+
+    emit({"phase": "render_stereo_shared", "splats": n, "width": FULL_W, "height": FULL_H,
+          "ipd": STEREO_IPD, "frusta": "symmetric",
+          "per_pair": st_ms, "production_per_pair": st_prod_ms,
+          "capacity_shared": capacity(st_cfg, st_demand),
+          "capacity_per_eye": capacity(pe_cfg, max(eye_demand)),
+          "eye_demands": eye_demand,
+          "instances_dropped_on_the_union_by_the_per_eye_capacity": dropped_per_view_cap,
+          "eyes_max_abs_err_vs_render_of_the_eye": st_eye_err,
+          "production_eyes_vs_render_of_the_eye": st_prod_vs_eye,
+          "launches": {"shared": st_launches, "per_eye": pe_launches,
+                       "shared_backward": st_bwd_launches,
+                       "shared_production": st_prod_launches},
+          "peak_memory_bytes": st_peak, "grad_abs_max": st_grads,
+          "kernels_at_union": st_kernels, "kernels_at_production_union": st_prod_kernels,
+          "kernel_check_seconds": st_check_s,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+
+    # a cluster of CLUSTER_VIEWS path views CLUSTER_STEP rad apart on the
+    # garden orbit: per-view rendering, clusters of 2 and one cluster of 4
+    t_phase = time.perf_counter()
+    cl_list = [R.Camera.from_fov(
+        T.look_at(eye=[4.2 * math.cos(a), 1.6, 4.2 * math.sin(a)], target=[0.0, 0.8, 0.0],
+                  up=[0.0, 1.0, 0.0]), fovy=np.pi / 4, width=FULL_W, height=FULL_H, device=dev)
+        for a in CLUSTER_STEP * np.arange(CLUSTER_VIEWS)]
+    cl_cams = R.Camera(cam_to_world=torch.stack([c.cam_to_world for c in cl_list]),
+                       proj=torch.stack([c.proj for c in cl_list]))
+    pv_cfg = R.calibrate_config(scene, cl_cams, cfg)
+    pv_imgs, pv_launches = counted(lambda: R.render_batch(scene, cl_cams, pv_cfg))
+    want_launches("render_cluster per view", pv_launches, CLUSTER_VIEWS)
+    with torch.no_grad():
+        pv_demand = max(int(B.instance_demand(d["mean2d"], d["extent"],
+                                              tiled._grid_from_config(cfg, n)))
+                        for d in (R.prepare_splats(scene, c, cfg) for c in cl_list))
+    cl_ms = {"per_view_forward": timed(lambda: R.render_batch(scene, cl_cams, pv_cfg),
+                                       CLUSTER_VIEWS),
+             "per_view_forward_backward": timed(loss_step(lambda p: R.render_batch(
+                 p, cl_cams, dataclasses.replace(pv_cfg, forward_only=False))), CLUSTER_VIEWS)}
+    cl_out = {"capacity_per_view": capacity(pv_cfg, pv_demand)}
+    cl_launches = {"per_view": pv_launches}
+    k_kernels = {}
+    for k in (2, 4):
+        k_cfg = CL.calibrate_config_cluster(scene, cl_cams, cfg, cluster_size=k)
+        k_train = dataclasses.replace(k_cfg, forward_only=False)
+
+        def shared(p, c, k=k):
+            return CL.render_path_clustered(p, cl_cams, c, cluster_size=k, max_depth_shift=None)
+
+        imgs, launches = counted(lambda: shared(scene, k_cfg))
+        want_launches(f"render_cluster k={k}", launches, CLUSTER_VIEWS,
+                      binnings=CLUSTER_VIEWS // k)
+        if imgs.shape != pv_imgs.shape or not bool(torch.isfinite(imgs).all()):
+            raise AssertionError(f"render_cluster k={k}: wrong shape or non-finite values")
+        # each cluster's reference view is order-exact; the others are an
+        # approximation, printed and not held
+        ref_err = [composite_close(imgs[v], pv_imgs[v], f"render_cluster k={k}: view {v}")
+                   for v in range(0, CLUSTER_VIEWS, k)]
+        diff = (imgs - pv_imgs).abs()
+        del imgs
+        _, bwd_launches = counted(loss_step(lambda p: shared(p, k_train)))
+        want_launches(f"render_cluster k={k} backward", bwd_launches, CLUSTER_VIEWS,
+                      backward=True, binnings=CLUSTER_VIEWS // k)
+        grads = leaf_grads_ok(f"render_cluster k={k} backward")
+        with torch.no_grad():
+            demands, dropped = [], 0
+            for c0 in range(0, CLUSTER_VIEWS, k):
+                sub = R.Camera(cl_cams.cam_to_world[c0:c0 + k], cl_cams.proj[c0:c0 + k])
+                ds, um, ue = CL.prepare_cluster(scene, sub, cfg)
+                demands.append(int(B.instance_demand(um, ue, tiled._grid_from_config(cfg, n))))
+                dropped += int(B.bin_splats(um, ue, tiled._grid_from_config(k_cfg, n),
+                                            ds[0]["depth"])["num_culled_instances"])
+                if c0 == 0:  # the first cluster's union: its last view's rows
+                    behind_live = int(((ds[0]["depth"] <= 0.0)
+                                       & torch.stack([d["mask"] for d in ds[1:]]).any(0)).sum())
+                    t_check = time.perf_counter()
+                    k_kernels[k] = shared_kernels_close(
+                        ds, (um, ue), tiled._grid_from_config(k_cfg, n), [k - 1],
+                        f"render_cluster k={k} union")
+                    k_kernels[k]["splats_behind_view_0_live_in_another"] = behind_live
+                    k_kernels[k]["seconds"] = time.perf_counter() - t_check
+                del ds, um, ue
+        if dropped != 0:
+            raise AssertionError(f"render_cluster k={k}: {dropped} instances dropped under the "
+                                 f"union calibration")
+        cl_ms[f"k{k}_forward"] = timed(lambda: shared(scene, k_cfg), CLUSTER_VIEWS)
+        cl_ms[f"k{k}_forward_backward"] = timed(loss_step(lambda p: shared(p, k_train)),
+                                                CLUSTER_VIEWS)
+        cl_launches[f"k{k}"], cl_launches[f"k{k}_backward"] = launches, bwd_launches
+        cl_out[f"k{k}"] = {"capacity": capacity(k_cfg, max(demands)), "cluster_demands": demands,
+                           "num_culled_instances": dropped,
+                           "reference_views_max_abs_err": ref_err,
+                           "views_max_abs_vs_per_view": diff.amax(dim=(1, 2, 3)).tolist(),
+                           "views_mean_abs_vs_per_view": diff.mean(dim=(1, 2, 3)).tolist(),
+                           "grad_abs_max": grads}
+        del diff
+    # rows of splats culled in the view: the garden view's pair and the
+    # cluster above carry none (a splat culled in one view has its rect
+    # outside the image there, beyond the guard band), so two opposite
+    # orbit views are binned together (view 0 culls what lies behind it, and
+    # carries its negative depth into the shared key), at the mid size (at
+    # full size their union rects would span the image), in each row layout
+    t_check = time.perf_counter()
+    culled_kernels = {}
+    mid_scene = make_garden_scene(40_000, seed=0, device=dev)
+    opposite = garden_cameras(2, width=320, height_px=192, device=dev)
+    opp_cfg = CL.calibrate_config_cluster(mid_scene, opposite, mid_cfg, cluster_size=2)
+    with torch.no_grad():
+        ds, um, ue = CL.prepare_cluster(mid_scene, opposite, opp_cfg)
+        behind_live = int(((ds[0]["depth"] <= 0.0) & ds[1]["mask"]).sum())
+        for layout, knobs in LAYOUT_KNOBS.items():
+            res = shared_kernels_close(
+                ds, (um, ue), tiled._grid_from_config(dataclasses.replace(opp_cfg, **knobs),
+                                                      mid_scene.num_gaussians),
+                [0], f"opposite views 320x192 {layout}")
+            if res["views"][0]["rows_of_splats_culled_in_this_view"] == 0 or not behind_live:
+                raise AssertionError("opposite views: no rows of splats culled in view 0")
+            culled_kernels[layout] = res
+    culled_kernels["splats_behind_view_0_live_in_view_1"] = behind_live
+    culled_kernels["seconds"] = time.perf_counter() - t_check
+    del ds, um, ue, mid_scene
+    # the default gate ("auto": 0.5 % of the content radius) on these steps
+    r_scale = CL.scene_depth_scale(scene)
+    gate = [CL.cluster_shareable(R.Camera(cl_cams.cam_to_world[c0:c0 + k],
+                                          cl_cams.proj[c0:c0 + k]), 0.005 * r_scale, r_scale)
+            for k in (2, 4) for c0 in range(0, CLUSTER_VIEWS, k)]
+    auto_imgs = CL.render_path_clustered(scene, cl_cams, pv_cfg, cluster_size=4)
+    auto_equal = bool(torch.equal(auto_imgs, pv_imgs))
+    if not any(gate) and not auto_equal:
+        raise AssertionError("render_path_clustered: the gate refused every cluster, and the "
+                             "path differs from render_batch")
+    del auto_imgs, pv_imgs, leaf
+    emit({"phase": "render_cluster", "splats": n, "width": FULL_W, "height": FULL_H,
+          "views": CLUSTER_VIEWS, "step_rad": CLUSTER_STEP,
+          "per_view": cl_ms, **cl_out,
+          "launches": cl_launches, "kernels_at_k2_union": k_kernels[2],
+          "kernels_at_k4_union": k_kernels[4],
+          "kernels_with_culled_rows": culled_kernels,
+          "auto_gate": {"scene_depth_scale": r_scale, "max_depth_shift": 0.005 * r_scale,
+                        "shares_k2_clusters": gate[:2], "shares_k4_cluster": gate[2],
+                        "render_path_clustered_equals_render_batch": auto_equal},
+          "phase_seconds": time.perf_counter() - t_phase,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+    for row in kernel_rows[:3]:  # B1, B2 and B3 (f32x16) on the shared paths
+        counter = row["name"]
+        for path, counts in (("render_stereo_shared", st_launches),
+                             ("render_stereo_shared_backward", st_bwd_launches),
+                             ("render_cluster_k2", cl_launches["k2"]),
+                             ("render_cluster_k2_backward", cl_launches["k2_backward"]),
+                             ("render_cluster_k4", cl_launches["k4"]),
+                             ("render_cluster_k4_backward", cl_launches["k4_backward"])):
+            row["launches_by_path"][path] = sum(counts[c] for c in KERNEL_COUNTERS[counter])
+    # B1 and B2[i32x8] on the production shared-stereo path, and their errors
+    # at its shapes
+    for row in kernel_rows:
+        counter = {"expand_fill": "expand_fill", "composite_fwd[i32x8]": "composite_fwd"}.get(
+            row["name"])
+        if counter is not None:
+            row["launches_by_path"]["render_stereo_shared_production"] = sum(
+                st_prod_launches[c] for c in KERNEL_COUNTERS[counter])
+            row["max_abs_err_at_render_stereo_shared_production_shapes"] = (
+                st_prod_kernels["expand_fill_max_abs_err"] if counter == "expand_fill" else
+                max(res[e] for res in st_prod_kernels["views"].values()
+                    for e in ("segments_max_abs_err", "combine_max_abs_err") if e in res))
 
     # ---- phase 7: output checks on small inputs
     away = R.Camera.from_fov(

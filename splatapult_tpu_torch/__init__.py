@@ -2,18 +2,21 @@
 
 A second package beside the JAX one, sub-package for sub-package (``io/``,
 ``core/``, ``ops/``, ``utils/``, ``reference/``, ``render.py``, ``train.py``,
-``densify.py``, ``diagnostics.py``, ``cli.py``), plus ``kernels/`` (the
-hand-written CUDA kernels and their loader) and ``convert.py`` (carry
-parameters across from the JAX package). It imports torch and numpy only.
+``densify.py``, ``stereo.py``, ``cluster.py``, ``diagnostics.py``,
+``cli.py``), plus ``kernels/`` (the hand-written CUDA kernels and their
+loader) and ``convert.py`` (carry parameters across from the JAX package). It
+imports torch and numpy only.
 
 The viewer: one view, a camera path (``render_batch``) or a stereo pair
 (``Camera.stereo_pair``) through the tiled pipeline (prepare -> bin/sort ->
 gather -> composite -> assemble, with the expand and composite-forward kernels
-written for sm_90a) or, below 4096 splats, the global pipeline; supersampling;
-the cameras.json / <ply>_vr.json host side and the CLI. Training on one
-device: autograd through either pipeline, with the composite-backward kernel
-and its per-splat tail on the tiled one, ``train.fit_scene``, and adaptive
-density control (``densify.fit_scene_adaptive``: clone, split, prune). Entry
+written for sm_90a) or, below 4096 splats, the global pipeline; a stereo pair
+or a cluster of path views binned once for all its views (``stereo.py``,
+``cluster.py``); supersampling; the cameras.json / <ply>_vr.json host side
+and the CLI. Training on one device: autograd through either pipeline, with
+the composite-backward kernel and its per-splat tail on the tiled one,
+``train.fit_scene``, and adaptive density control
+(``densify.fit_scene_adaptive``: clone, split, prune). Entry
 points run on the GPU unless the caller passes ``device="cpu"``.
 """
 

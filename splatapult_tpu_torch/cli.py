@@ -195,7 +195,7 @@ def gpu_name_and_power_limit() -> str:
 
 
 def cmd_render(args):
-    from splatapult_tpu_torch.render import render, render_batch
+    from splatapult_tpu_torch.render import render, render_batch, resolve_pipeline
     from splatapult_tpu_torch.utils.image import save_png
 
     scene, cameras, floor, _ = _load_scene_and_assets(args)
@@ -203,19 +203,31 @@ def cmd_render(args):
     t0 = time.time()
     if args.stereo:
         # the VR stereo pair (ref: src/xrbuddy.cpp:1689-1800), written side by
-        # side, each eye rendered on its own through render_batch
-        if args.shared_bins:
-            raise NotImplementedError(
-                "render --stereo --shared-bins (one binning shared by both eyes, "
-                "the JAX package's stereo.render_stereo) is not ported yet "
-                "(ROADMAP queue 1 item 6: stereo and path clusters)")
+        # side. Default: each eye rendered on its own through render_batch.
+        # --shared-bins bins once over both eyes (stereo.render_stereo), which
+        # needs symmetric frusta, supersample 1 and the tiled pipeline: the
+        # JAX CLI's rule
         if args.show_cameras:
             log.warning("--show-cameras is not drawn on --stereo renders")
         tan = args.eye_tan_angles
-        pair = cam.stereo_pair(
-            args.ipd, tan_angles=None if tan is None else np.asarray(tan, np.float32).reshape(2, 4),
-            near=args.near, far=args.far)
-        imgs = render_batch(scene, pair, _calibrated(scene, pair, _config(args))).cpu().numpy()
+        cfg = _config(args)
+        shared = args.shared_bins and tan is None and args.supersample == 1 and (
+            resolve_pipeline(cfg, scene.num_gaussians) == "tiled")
+        if shared:
+            from splatapult_tpu_torch.stereo import calibrate_config_stereo, render_stereo
+
+            # the shared binning needs the UNION demand of both eyes
+            imgs = render_stereo(scene, cam, calibrate_config_stereo(scene, cam, cfg, args.ipd),
+                                 args.ipd).cpu().numpy()
+        else:
+            if args.shared_bins:
+                log.info("stereo: per-eye render path (shared binning needs the tiled "
+                         "pipeline, supersample 1 and symmetric frusta)")
+            pair = cam.stereo_pair(
+                args.ipd,
+                tan_angles=None if tan is None else np.asarray(tan, np.float32).reshape(2, 4),
+                near=args.near, far=args.far)
+            imgs = render_batch(scene, pair, _calibrated(scene, pair, cfg)).cpu().numpy()
         img = np.concatenate([imgs[0], imgs[1]], axis=1)
     else:
         img = render(scene, cam, _calibrated(scene, cam, _config(args))).cpu().numpy()
@@ -516,7 +528,9 @@ def main(argv=None):
     p.add_argument("--ipd", type=float, default=0.064,
                    help="interpupillary distance in meters for --stereo")
     p.add_argument("--shared-bins", action="store_true",
-                   help="bin once for both eyes (not ported yet: raises)")
+                   help="bin once for both eyes over the union of their tile rects "
+                        "(stereo.render_stereo; needs symmetric frusta, supersample 1 "
+                        "and the tiled pipeline, else each eye is rendered on its own)")
     p.add_argument("--eye-tan-angles", type=float, nargs=8, default=None,
                    metavar=("L_LEFT", "L_RIGHT", "L_UP", "L_DOWN",
                             "R_LEFT", "R_RIGHT", "R_UP", "R_DOWN"),

@@ -290,10 +290,11 @@ def test_native_codec_matches_numpy_path(tmp_path):
     assert native.available() == (native.path_used == "native")
 
 
-def test_cli_host_commands_and_cameras_json_on_cpu(scene_dir, tmp_path, capsys):
+def test_cli_host_commands_and_cameras_json_on_cpu(scene_dir, tmp_path, capsys, caplog):
     """path (--every, --batch), points, export --prune, info, save-pose (and
     the next render picks up the floor), render --camera-index
-    --show-cameras, render --stereo --eye-tan-angles, render --supersample,
+    --show-cameras, render --stereo --eye-tan-angles, render --stereo
+    --shared-bins (and its per-eye fallback), render --supersample,
     and fit against cameras.json with a <ply>_vr.json present: in-process,
     --device cpu, 32x32 (1000 splats: auto picks the global pipeline)."""
     ply = str(scene_dir / "g.ply")
@@ -332,8 +333,22 @@ def test_cli_host_commands_and_cameras_json_on_cpu(scene_dir, tmp_path, capsys):
     assert load_png(out + "st.png").shape == (32, 64, 3)
     cli.main(["render", ply, "-o", out + "ss.png", "--supersample", "2", *view])
     assert load_png(out + "ss.png").shape == (32, 32, 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["render", ply, "-o", out + "x.png", "--stereo", "--shared-bins", *view])
+    # --shared-bins on the tiled pipeline bins once for both eyes: each eye
+    # within one 8-bit step of the per-eye PNG of the same view
+    tiled = [*view, "--pipeline", "tiled"]
+    cli.main(["render", ply, "-o", out + "pe.png", "--stereo", *tiled])
+    caplog.clear()
+    cli.main(["render", ply, "-o", out + "sb.png", "--stereo", "--shared-bins", *tiled])
+    assert "per-eye render path" not in caplog.text
+    shared, per_eye = load_png(out + "sb.png"), load_png(out + "pe.png")
+    assert shared.shape == (32, 64, 3) and shared.max() > 0.1
+    assert np.abs(shared - per_eye).max() <= 1.0 / 255.0 + 1e-6
+    # with per-eye frusta it renders each eye on its own, and says so
+    caplog.clear()
+    cli.main(["render", ply, "-o", out + "x.png", "--stereo", "--shared-bins", "--eye-tan-angles",
+              "-0.5", "0.3", "0.4", "-0.4", "-0.3", "0.5", "0.4", "-0.4", *view])
+    assert "stereo: per-eye render path" in caplog.text
+    np.testing.assert_array_equal(load_png(out + "x.png"), load_png(out + "st.png"))
 
     cli.main(["render", ply, "-o", out + "before.png", *view])
     cli.main(["save-pose", ply, "--eye", "0", "1.6", "4", "--target", "0", "0.8", "0"])
