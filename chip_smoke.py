@@ -74,6 +74,22 @@ needs no network. It
    and B2's two launches (and, on the paths that run it, B3) against their
    plain versions, on rows of splats that the view culls (B3 must give them
    exactly zero), and no instance dropped under the union calibration;
+   then several ranks (parallel/): every rank's band of 2 and 4 tile shards,
+   interleaved and contiguous, run in turn in this process through
+   parallel/mesh.py's band functions at both training views, counters
+   zeroed just before (mesh_bands: each deinterleaved image against
+   render(), no instance dropped in any band, B1, B2 and B3 against their
+   plain versions and timed at rank 0's band of 4, what the other ranks'
+   empty tiles cost B2, the 2 bands' gradients summed against the
+   unsharded step's, band demand peak / mean for 2, 4 and 8 shards, and each
+   rank's device busy time with the prepare replicated or sharded beside
+   the frame's); and the torch.distributed path in spawned ranks (mesh_dist:
+   2 ranks over gloo sharing this card on a 1 x 2 and a 2 x 1 mesh, 1 rank
+   over NCCL brought up from torchrun's environment, and NCCL over up to 4
+   cards where the machine has several; each rank's render_sharded, one
+   sharded_train_step and 3 steps of zero_fit_steps against its own
+   single-device render, step and 3 replicated sharded steps, its launches
+   counted; every rank must agree);
 7. checks the output: finite, the expected shape, agreeing with the
    JAX-made golden images under tests/golden/ on the two small scenes, the
    GPU render agreeing with the port's CPU render (exact and production),
@@ -152,7 +168,16 @@ oracle, the bounds of tests/test_render.py (mean < 5e-5, 99.5th percentile <
 gradients against the CPU's, within 2e-4 of each field's largest.
 Supersample: equal to the 3840x2160 frame box-filtered down within 1e-6.
 render_batch views and stereo eyes: equal to render() of the camera alone,
-bit for bit. Shared binning: a shared-stereo eye, and each cluster's
+bit for bit. Multi-device (mesh_bands, mesh_dist): an interleaved band keeps
+the image's tiles and pixel coordinates, so the deinterleaved bands and
+render_sharded equal render() bit for bit; a contiguous band (the JAX shift
+of mean2d, which rounds it) is held to the composite tolerance. The bands'
+gradients summed over the tile shards, against the unsharded step's: each
+field within 2e-4 of its largest (the interleaved bands; for the contiguous
+ones, which round mean2d, at most a 1e-4 fraction of the values may differ
+by up to 2e-2, the flips composite_bwd's tolerance allows). Losses rtol
+1e-5; ZeRO against the replicated sharded fit: losses rtol 1e-4.
+Shared binning: a shared-stereo eye, and each cluster's
 reference view, against render() of that view, the composite tolerance
 (longer chains cut into segments elsewhere change the float association);
 under the production profile the mean abs <= 2e-3 of the production contract
@@ -200,6 +225,10 @@ GLOBAL_SPLATS = 4000  # below 4096: pipeline="auto" picks the global pipeline
 # block at a time (its [64, P] temporaries, ~0.2 GB each); an eager loop
 # under autograd would keep every block's temporaries, tens of GB.
 GLOBAL_BWD_PEAK_BYTES = 8 * 2 ** 30
+MESH_SHARDS = (2, 4)  # mesh_bands: tile shards (ranks) run in turn in one process
+BAND_LAYOUTS = ("interleaved", "contiguous")
+MESH_STEPS = 3  # mesh_dist: steps of the replicated and the ZeRO fit on each mesh
+MESH_WORLD_TIMEOUT_S = 300.0
 
 
 T_START = time.perf_counter()
@@ -446,6 +475,180 @@ def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
     return out
 
 
+def perturbed(scene):
+    """The training start: the scene with seeded noise on its colours,
+    opacities and positions (the same in every training phase and rank)."""
+    dev = scene.means.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def noisy(t, sigma):
+        return t + sigma * torch.randn(t.shape, generator=gen, device=dev)
+
+    return dataclasses.replace(scene, sh=noisy(scene.sh, 0.1),
+                               opacities=noisy(scene.opacities, 0.3),
+                               means=noisy(scene.means, 0.005))
+
+
+def scaled_grad_errs(leaf, ref_grads, what: str, allow: float = 2e-4) -> dict:
+    """Each field's gradient error over that field's largest reference
+    gradient -> {field: max error, field + "_share_over_2e-4": the share of
+    values above 2e-4}. Every value within 2e-4; with ``allow`` > 2e-4, a
+    share of at most 1e-4 of the values may differ by up to ``allow`` (the
+    module docstring says where and why)."""
+    errs = {}
+    for f, want in ref_grads.items():
+        got = getattr(leaf, f).grad
+        scale = float(want.abs().max())
+        err = (got - want).abs() / max(scale, 1e-30)
+        errs[f] = float(err.max())
+        errs[f + "_share_over_2e-4"] = float((err > 2e-4).float().mean())
+        ok = errs[f] <= 2e-4 or (errs[f] <= allow and errs[f + "_share_over_2e-4"] <= 1e-4)
+        if not (scale > 0.0 and bool(torch.isfinite(got).all()) and ok):
+            raise AssertionError(f"{what}: {f} gradient {errs[f]:.3e} of its largest {scale:.3e} "
+                                 f"({errs[f + '_share_over_2e-4']:.2e} of the values over 2e-4)")
+    return errs
+
+
+def mesh_rank(rank, world, backend, port, out_dir, meshes):
+    """One rank of phase mesh_dist, on the card: the full-width garden and
+    its two training views; per mesh (views, tiles) of ``meshes``, with the
+    launch counters zeroed just before, render_sharded of view 0, one
+    sharded_train_step over both views, MESH_STEPS steps of the replicated
+    sharded fit and of zero_fit_steps; each held against this process's
+    single-device render and step (composite tolerance; gradients within
+    2e-4 of each field's largest) and ZeRO's losses against the replicated
+    fit's (rtol 1e-4). "nccl": torchrun's environment, initialize_distributed,
+    card ``rank``; "gloo": init_process_group itself, every rank on card 0.
+    Pickles its results into ``out_dir``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from splatapult_tpu_torch import kernels, train
+    from splatapult_tpu_torch.io.synth import garden_cameras, make_garden_scene
+    from splatapult_tpu_torch.ops.tiled import _grid_from_config
+    from splatapult_tpu_torch.parallel import distributed as PD
+    from splatapult_tpu_torch.parallel import mesh as PM
+
+    R = importlib.import_module("splatapult_tpu_torch.render")
+    if backend == "nccl":
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                          WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+        if not PD.initialize_distributed():
+            raise RuntimeError("initialize_distributed found no world")
+    else:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fields = ("means", "sh", "opacities", "log_scales", "quats")
+    scene = make_garden_scene(FULL_SPLATS, seed=0, device=dev)
+    views = garden_cameras(TRAIN_VIEWS, width=FULL_W, height_px=FULL_H, device=dev)
+    view_list = train._views(views)
+    exact = R.apply_profile(R.RenderConfig(width=FULL_W, height=FULL_H, pipeline="tiled"),
+                            "exact")
+    fwd = dataclasses.replace(exact, forward_only=True)
+    start = perturbed(scene)
+    true_cfg = R.calibrate_config(scene, views, exact)
+    targets = torch.stack([R.render(scene, v, true_cfg) for v in view_list])
+    with torch.no_grad():
+        ref_img = R.render(scene, view_list[0], R.calibrate_config(scene, view_list[0], fwd))
+    ref = train.leaf_copy(start)
+    ref_loss = float(train._batch_value_and_grad(ref, views, targets,
+                                                 R.calibrate_config(start, views, exact)))
+    ref_grads = {f: getattr(ref, f).grad for f in fields}
+
+    def factory(s):
+        return train.default_optimizer(s, 1e-2)
+
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "reference_loss": ref_loss}
+    for v_sh, t_sh in meshes:
+        mesh = PM.make_render_mesh(t_sh, v_sh)
+        band_cfg = PM.calibrate_config_sharded(start, views, exact, mesh)
+        img_cfg = PM.calibrate_config_sharded(scene, view_list[0], fwd, mesh)
+        full = PM.shard_targets(targets, band_cfg, mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = PM.render_sharded(scene, view_list[0], img_cfg, mesh)
+        leaf = train.leaf_copy(start)
+        loss, _ = PM.sharded_train_step(leaf, views, full, band_cfg, mesh)
+        rep = train.leaf_copy(start)
+        rep_losses = PM.make_sharded_fit_steps(band_cfg, mesh, factory(rep), MESH_STEPS)(
+            rep, views, full)
+        zero, _, zero_losses = PM.zero_fit_steps(start, views, targets, band_cfg, mesh, factory,
+                                                 MESH_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCH_COUNTS)
+        what = f"mesh_dist {backend} {world} ranks, mesh {v_sh}x{t_sh}, rank {rank}"
+        per = TRAIN_VIEWS // v_sh
+        want = {"expand_fill": 1 + per * (1 + 2 * MESH_STEPS),
+                "composite_fwd_segments": 1 + per * (1 + 2 * MESH_STEPS),
+                "composite_fwd_combine": 1 + per * (1 + 2 * MESH_STEPS),
+                "composite_bwd": per * (1 + 2 * MESH_STEPS)}
+        if launches != want:
+            raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+        img_err = composite_close(img, ref_img, f"{what}: render_sharded against render")
+        if not torch.equal(img, ref_img):  # the interleaved bands are render's rows
+            raise AssertionError(f"{what}: render_sharded is not render's image bit for bit")
+        grad_err = scaled_grad_errs(leaf, ref_grads, f"{what}: sharded_train_step")
+        rep_l, zero_l = rep_losses.tolist(), zero_losses.tolist()
+        if not (abs(float(loss) - ref_loss) <= 1e-5 * ref_loss
+                and np.allclose(zero_l, rep_l, rtol=1e-4, atol=0.0) and rep_l[-1] < rep_l[0]):
+            raise AssertionError(f"{what}: loss {float(loss)} against {ref_loss}; ZeRO losses "
+                                 f"{zero_l} against the replicated fit's {rep_l}")
+        param_diff = {f: float((getattr(zero, f) - getattr(rep, f).detach()).abs().max())
+                      for f in fields}
+        demands = [PM.band_instance_demands(start, v, exact, t_sh).tolist() for v in view_list]
+        out[f"{v_sh}x{t_sh}"] = {
+            "seconds": seconds, "launches": launches, "render_max_abs_err": img_err,
+            "step_loss": float(loss), "step_grad_max_scaled_err": grad_err,
+            "replicated_fit_losses": rep_l, "zero_fit_losses": zero_l,
+            "zero_vs_replicated_params_max_abs_diff": param_diff,
+            "max_instance_mult": band_cfg.max_instance_mult,
+            "emax": _grid_from_config(band_cfg, FULL_SPLATS).emax, "band_demands": demands}
+        del img, leaf, rep, zero
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_world(world: int, backend: str, meshes, timeout_s: float = MESH_WORLD_TIMEOUT_S):
+    """mesh_rank in ``world`` spawned processes -> (each rank's results,
+    seconds). A rank that raises fails the script; a world that outlives
+    ``timeout_s`` is killed and fails it too."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(mesh_rank, args=(world, backend, port, out_dir, meshes),
+                                 nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=max(1.0, t0 + timeout_s - time.perf_counter())):
+                if time.perf_counter() > t0 + timeout_s:
+                    raise AssertionError(f"mesh_dist: {backend} world of {world} did not finish "
+                                         f"in {timeout_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(10)
+        results = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results, time.perf_counter() - t0
+
+
 def main() -> int:
     # ---- phase 1: device
     if not torch.cuda.is_available():
@@ -460,6 +663,7 @@ def main() -> int:
     from splatapult_tpu_torch.core import transforms as T
     from splatapult_tpu_torch.ops import binning as B, composite as C, tiled
     from splatapult_tpu_torch import train
+    from splatapult_tpu_torch.parallel import mesh as PM
     from splatapult_tpu_torch.tools.profile_phases import _profile as profile_device
     from splatapult_tpu_torch.tools.profile_phases import touched_shares
 
@@ -487,11 +691,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
 
-    def kernel_inputs(scene, cam, cfg, row_stride=1, row_offset=None):
+    def kernel_inputs(scene, cam, cfg, row_stride=1, row_offset=None, grid=None):
         """The tensors the kernels' wrappers receive on the render path (the
-        instance rows in the config's layout)."""
+        instance rows in the config's layout); ``grid``: another grid than
+        the config's (an interleaved band's, parallel/mesh.py)."""
         d = R.prepare_splats(scene, cam, cfg)
-        grid = tiled._grid_from_config(cfg, scene.num_gaussians, row_stride)
+        grid = grid or tiled._grid_from_config(cfg, scene.num_gaussians, row_stride)
         table = B.expand_table(d["mean2d"], d["extent"], grid, d["depth"], row_offset)
         bins = B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"], row_offset)
         feats = tiled.pack_features(d["mean2d"], d["conic"], d["rgb"], d["alpha"])
@@ -704,17 +909,9 @@ def main() -> int:
     view_list = [R.Camera(cam_to_world=m, proj=q)
                  for m, q in zip(views.cam_to_world, views.proj)]
     def make_train_start():
-        """The training start: the scene with seeded noise (the same in every
-        training phase; made there, so the render phases' peak memory does
-        not hold it)."""
-        gen = torch.Generator(device=dev).manual_seed(2)
-
-        def noisy(t, sigma):
-            return t + sigma * torch.randn(t.shape, generator=gen, device=dev)
-
-        return dataclasses.replace(scene, sh=noisy(scene.sh, 0.1),
-                                   opacities=noisy(scene.opacities, 0.3),
-                                   means=noisy(scene.means, 0.005))
+        """The training start (made in each training phase, so the render
+        phases' peak memory does not hold it)."""
+        return perturbed(scene)
 
     setup_s = time.perf_counter() - t0
 
@@ -790,15 +987,21 @@ def main() -> int:
             raise AssertionError(f"{what}: against the exact frame with the same key {out}")
         return out
 
-    def composite_rows(cfg, launches_fwd, exact_tables=False, at=None):
+    def composite_rows(cfg, launches_fwd, exact_tables=False, at=None, band=None):
         """B2 and B3 at the full-size view's shapes in cfg's row layout:
         against their plain versions, timed, with their bounds -> (the two
         rows of the kernels line, extras). With ``exact_tables`` also B1's
         row and the tail's timings (the layout does not touch either).
-        ``at``: another (scene, camera) than the garden view."""
+        ``at``: another (scene, camera) than the garden view. ``band``:
+        (shards, rank) of an interleaved tile-row band (parallel/mesh.py);
+        its bounds count the band's own tiles."""
         scene_at, cam_at = at or (scene, cam)
         n = scene_at.num_gaussians
-        grid, table, bins, inst, tstart, nblk = kernel_inputs(scene_at, cam_at, cfg)
+        if band is None:
+            grid, table, bins, inst, tstart, nblk = kernel_inputs(scene_at, cam_at, cfg)
+        else:
+            grid, table, bins, inst, tstart, nblk = kernel_inputs(
+                scene_at, cam_at, cfg, band[0], band[1], PM._band_grid(cfg, n, band[0]))
         layout, bf16 = layout_of(grid), is_bf16(grid)
         culled = int(bins["num_culled_instances"])
         if culled != 0:
@@ -808,7 +1011,7 @@ def main() -> int:
         if exact_tables:
             total = int(table["ends"][-1])
             e_args = (table["ends"], table["tile0"], table["nx"], table["dbits"],
-                      grid.emax, grid.tiles_x)
+                      grid.emax, grid.tiles_x * grid.row_stride)
             got = B.expand_fill(*e_args)
             want = B.expand_fill_plain(*e_args)
             torch.cuda.synchronize()
@@ -914,9 +1117,9 @@ def main() -> int:
                 "per_splat_sums_bf16_columns": scaled_err(
                     C.per_splat_sums(*tail_args, bf16_grid)),
                 "index_add_": scaled_err(scatter())}
-            # float32 prefix sums over 2.6M slots: the rounding is relative to
-            # the running total, so it is stated on the per-column scale; bf16
-            # columns round every instance value by up to 2^-9 of itself
+            # stated on the per-column scale (the tail's float64 prefix sums
+            # round relative to the running total); bf16 columns round every
+            # instance value by up to 2^-9 of itself
             if not extra["tail_max_scaled_err_vs_float64"]["per_splat_sums"] <= 1e-4:
                 raise AssertionError(f"per_splat_sums: {extra}")
             if not extra["tail_max_scaled_err_vs_float64"]["per_splat_sums_bf16_columns"] <= 4e-3:
@@ -943,9 +1146,12 @@ def main() -> int:
                        "share_above_discard": pairs_above / max(needed_slots * p, 1),
                        "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]}
         row_bytes, val_bytes = inst.element_size() * inst.shape[1], out.element_size()
+        # the tiles whose rows the function must write (a band's own: the
+        # others' rows are written, but nobody reads them)
+        tiles_out = grid.num_tiles // grid.row_stride
         # (the forward's locals, written and read once between its two
         # kernels, are the design's traffic, not the function's)
-        c_bytes = row_bytes * needed_slots + 8 * val_bytes * grid.num_tiles * p + 8 * grid.num_tiles
+        c_bytes = row_bytes * needed_slots + 8 * val_bytes * tiles_out * p + 8 * tiles_out
         c_flop = 2 * 15 * pairs_above + 2 * 25 * needed_slots
         c_bound_b = c_bytes / HBM_BYTES_PER_S * 1e3
         c_bound_o = c_flop / FP32_FLOP_PER_S * 1e3
@@ -953,8 +1159,8 @@ def main() -> int:
         # pixel five rows each of the forward's output and its cotangent
         # read, per pixel and segment a checkpoint of four floats
         b_bytes = ((row_bytes + 4 * C.NUM_GRAD_COLS) * needed_slots
-                   + 10 * val_bytes * grid.num_tiles * p + 16 * live_segments * p
-                   + 8 * grid.num_tiles)
+                   + 10 * val_bytes * tiles_out * p + 16 * live_segments * p
+                   + 8 * tiles_out)
         b_flop = 2 * 40 * pairs_above + 2 * 25 * needed_slots
         b_bound_b = b_bytes / HBM_BYTES_PER_S * 1e3
         b_bound_o = b_flop / FP32_FLOP_PER_S * 1e3
@@ -962,7 +1168,7 @@ def main() -> int:
                  "early_stop_eps": grid.early_stop_eps, "mcap": grid.mcap,
                  "live_slots": live_slots, "walked_slots": needed_slots,
                  "tiles_stopped_early": int((walked < nblk).sum()),
-                 "tiles": grid.num_tiles, "tile_pixels": p,
+                 "tiles": grid.num_tiles, "tiles_owned": tiles_out, "tile_pixels": p,
                  "max_blocks_in_a_tile": int(nblk.max()), **pairs_shape, "segment_blocks": K,
                  "segment_ctas_launched": C.num_segments_cap(grid)}
         suffix = "" if layout == "f32x16" else f"[{layout}]"
@@ -1765,6 +1971,191 @@ def main() -> int:
                 st_prod_kernels["expand_fill_max_abs_err"] if counter == "expand_fill" else
                 max(res[e] for res in st_prod_kernels["views"].values()
                     for e in ("segments_max_abs_err", "combine_max_abs_err") if e in res))
+
+    # ---- phase 6c: multi-device tile bands, every rank's band run in turn in
+    # this process (parallel/mesh.py's band functions, which the ranks run)
+    t_phase = time.perf_counter()
+    exact_fwd = R.apply_profile(base, "exact")
+    view_cfg = R.calibrate_config(scene, views, exact_fwd)
+    band_cfgs = {(d, lay): PM.calibrate_config_sharded(scene, views, exact_fwd, {"tiles": d},
+                                                       band_layout=lay)
+                 for d in MESH_SHARDS for lay in BAND_LAYOUTS}
+    with torch.no_grad():
+        prepared = [R.prepare_splats(scene, v, exact_fwd) for v in view_list]
+        # [view][rank] demands; the interleaved bands' sum is the demand of
+        # the full grid at the padded height
+        band_demands = {(d, lay): [PM.band_instance_demands(scene, v, exact_fwd, d, lay).tolist()
+                                   for v in view_list]
+                        for d in (2, 4, 8) for lay in BAND_LAYOUTS}
+        view_demands = [int(B.instance_demand(sp["mean2d"], sp["extent"],
+                                              tiled._grid_from_config(exact_fwd, n)))
+                        for sp in prepared]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        band_imgs = {}
+        for (d, lay), c in band_cfgs.items():
+            for vi, sp in enumerate(prepared):
+                bands = torch.cat([PM._band_fn(lay)(sp, r, d, c) for r in range(d)])
+                if lay == "interleaved":
+                    bands = PM._deinterleave_rows(bands, c, d)
+                band_imgs[(d, lay, vi)] = bands[:FULL_H]
+        torch.cuda.synchronize()
+        bands_launches = dict(kernels.LAUNCH_COUNTS)
+        n_bands = len(view_list) * len(BAND_LAYOUTS) * sum(MESH_SHARDS)
+        want_launches("mesh_bands", bands_launches, n_bands)
+        band_err, band_capacity = {}, {}
+        for vi, v in enumerate(view_list):
+            whole = R.render(scene, v, view_cfg)
+            for (d, lay), c in band_cfgs.items():
+                key = f"{lay} D={d} view {vi}"
+                img = band_imgs.pop((d, lay, vi))
+                band_err[key] = composite_close(img, whole, f"mesh_bands: {key} against render")
+                # the interleaved bands keep the image's tiles and pixel
+                # coordinates: render's own rows
+                if lay == "interleaved" and not torch.equal(img, whole):
+                    raise AssertionError(f"mesh_bands: {key} is not render's image bit for bit")
+            del whole
+        for (d, lay), c in band_cfgs.items():
+            # bin_splats drops instances exactly when a band's demand exceeds
+            # emax (the farthest splats first): none may
+            peak = max(max(per_view) for per_view in band_demands[(d, lay)])
+            emax = tiled._grid_from_config(c, n).emax
+            band_capacity[f"{lay} D={d}"] = {"max_instance_mult": c.max_instance_mult,
+                                             "emax": emax, "peak_band_demand": peak}
+            if peak > emax:
+                raise AssertionError(f"mesh_bands: {lay} D={d} drops instances: {peak} > {emax}")
+    # B1, B2 and B3 at rank 0's band of D=4, interleaved, view 0: against their
+    # plain versions, timed, with their bounds
+    c4 = band_cfgs[(4, "interleaved")]
+    t_check = time.perf_counter()
+    mesh_rows, mesh_extra = composite_rows(c4, None, exact_tables=True,
+                                           at=(scene, view_list[0]), band=(4, 0))
+    # what the tiles of the other ranks cost: the same grid with no block in
+    # any tile (every CTA of the full grid launched, none with work)
+    grid4, _, _, inst4, st4, nb4 = kernel_inputs(scene, view_list[0], c4, 4, 0,
+                                                 PM._band_grid(c4, n, 4))
+    none = torch.zeros_like(nb4)
+    locs4 = C.composite_fwd_segments(inst4, st4, none, grid4)
+    empty_tiles = {"tiles": grid4.num_tiles, "tiles_owned": grid4.num_tiles // 4,
+                   "segment_ctas_launched": C.num_segments_cap(grid4),
+                   "segments_kernel_ms_no_block_anywhere": event_ms(
+                       lambda: C.composite_fwd_segments(inst4, st4, none, grid4), 10),
+                   "combine_kernel_ms_no_block_anywhere": event_ms(
+                       lambda: C.combine_segments(locs4, inst4, st4, none, grid4), 10),
+                   "band_ms_by_launch": mesh_rows[1]["ms_by_launch"]}
+    del grid4, inst4, st4, nb4, none, locs4
+    mesh_check_s = time.perf_counter() - t_check
+    # gradients: one band a rank, forward and backward, summed over the ranks
+    # (D=2), against the unsharded step of view 0
+    start_m = make_train_start()
+    exact_train = dataclasses.replace(exact_fwd, forward_only=False)
+    view0 = view_list[0]
+    tgt0 = R.render(scene, view0, R.calibrate_config(scene, view0, exact_train))
+    ref_leaf = train.leaf_copy(start_m)
+    ref_loss = float(train._batch_value_and_grad(ref_leaf, view0, tgt0[None], R.calibrate_config(
+        start_m, view0, exact_train)))
+    ref_grads = {f.name: getattr(ref_leaf, f.name).grad for f in dataclasses.fields(ref_leaf)}
+    del ref_leaf
+    band_grads = {}
+    for lay in BAND_LAYOUTS:
+        c2 = PM.calibrate_config_sharded(start_m, view0, exact_train, {"tiles": 2},
+                                         band_layout=lay)
+        tb = PM.shard_targets(tgt0[None], c2, {"tiles": 2}, lay)[0]
+        band_h = tb.shape[0] // 2
+        leaf_m = train.leaf_copy(start_m)
+        loss_m = 0.0
+        for r in range(2):
+            lr_ = PM.band_loss(R.prepare_splats(leaf_m, view0, c2), tb[r * band_h:(r + 1) * band_h],
+                               r, 2, c2, lay, FULL_H * FULL_W * 4)
+            lr_.backward()
+            loss_m += float(lr_.detach())
+        if not abs(loss_m - ref_loss) <= 1e-5 * ref_loss:
+            raise AssertionError(f"mesh_bands: {lay} D=2 loss {loss_m} against {ref_loss}")
+        band_grads[lay] = {"loss": loss_m, "reference_loss": ref_loss,
+                           "grad_max_scaled_err": scaled_grad_errs(
+                               leaf_m, ref_grads, f"mesh_bands: {lay} D=2 gradients",
+                               allow=2e-2 if lay == "contiguous" else 2e-4)}
+        del leaf_m
+    del start_m, ref_grads, tgt0
+    # balance: peak over mean band demand; each rank's device busy time
+    balance = {f"{lay} D={d}": [max(pv) / statistics.mean(pv) for pv in band_demands[(d, lay)]]
+               for (d, lay) in band_demands}
+    with torch.no_grad():
+        busy = {"unsharded_frame": timed(lambda: R.render(scene, view0, view_cfg)),
+                "prepare_splats": timed(lambda: R.prepare_splats(scene, view0, exact_fwd))}
+        for d in MESH_SHARDS:
+            chunk = -(-n // d)
+            part = PM._rows(PM._pad_scene(scene, chunk * d), 0, chunk)
+            busy[f"prepare_splats of N/{d}"] = timed(lambda: R.prepare_splats(part, view0,
+                                                                             exact_fwd))
+            for lay in BAND_LAYOUTS:
+                c = band_cfgs[(d, lay)]
+                for r in range(d):
+                    busy[f"{lay} D={d} band {r}"] = timed(
+                        lambda: PM._band_fn(lay)(prepared[0], r, d, c))
+            del part
+        per_rank = {}
+        for d in MESH_SHARDS:
+            for lay in BAND_LAYOUTS:
+                bands_ms = [busy[f"{lay} D={d} band {r}"]["device_busy_ms"] for r in range(d)]
+                per_rank[f"{lay} D={d}"] = {
+                    "shard_prepare_off": [busy["prepare_splats"]["device_busy_ms"] + b
+                                          for b in bands_ms],
+                    "shard_prepare_on_without_the_gather": [
+                        busy[f"prepare_splats of N/{d}"]["device_busy_ms"] + b for b in bands_ms]}
+    del prepared
+    emit({"phase": "mesh_bands", "splats": n, "views": len(view_list), "width": FULL_W,
+          "height": FULL_H, "profile": "exact", "shards": list(MESH_SHARDS),
+          "padded_heights": {d: PM._padded_height(exact_fwd, d) for d in (2, 4, 8)},
+          "launches": bands_launches, "max_abs_err_vs_render": band_err,
+          "capacity": band_capacity, "view_capacity": {
+              "max_instance_mult": view_cfg.max_instance_mult,
+              "emax": tiled._grid_from_config(view_cfg, n).emax, "view_demands": view_demands},
+          "band_demands": {f"{lay} D={d}": v for (d, lay), v in band_demands.items()},
+          "band_demand_peak_over_mean_by_view": balance,
+          "kernels_at_d4_rank0_band": {r["name"]: r for r in mesh_rows},
+          "kernels_at_d4_rank0_band_extra": mesh_extra, "empty_tiles_d4": empty_tiles,
+          "kernel_check_seconds": mesh_check_s, "d2_band_gradients": band_grads,
+          "device_busy_ms": {k: v["device_busy_ms"] for k, v in busy.items()},
+          "busy_ms_per_rank": per_rank,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+    for row, mrow in zip(kernel_rows[:3], mesh_rows):
+        row["launches_by_path"]["mesh_bands"] = sum(bands_launches[c]
+                                                    for c in KERNEL_COUNTERS[row["name"]])
+        row["at_mesh_band_d4_rank0"] = {
+            k: mrow[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape")}
+
+    # ---- phase 6d: the torch.distributed path in spawned ranks (mesh_dist):
+    # two ranks sharing this card over gloo, one rank over NCCL (torchrun's
+    # --nproc-per-node 1), and NCCL over several cards where there are
+    t_phase = time.perf_counter()
+    mesh_worlds = [("gloo", 2, [(1, 2), (2, 1)]), ("nccl", 1, [(1, 1)])]
+    if torch.cuda.device_count() >= 2:
+        k = min(torch.cuda.device_count(), 4)
+        mesh_worlds.append(("nccl", k, [(1, k)] + ([(2, k // 2)] if k == 4 else [])))
+    dist_out = {}
+    for backend, world, meshes in mesh_worlds:
+        results, secs = run_world(world, backend, meshes)
+        for r, res in enumerate(results):
+            for m in meshes:
+                key = f"{m[0]}x{m[1]}"
+                if (res[key]["zero_fit_losses"] != results[0][key]["zero_fit_losses"]
+                        or res[key]["step_loss"] != results[0][key]["step_loss"]):
+                    raise AssertionError(f"mesh_dist {backend}: rank {r} disagrees with rank 0")
+        dist_out[f"{backend}, {world} rank(s)"] = {"seconds": secs, "ranks": results}
+    emit({"phase": "mesh_dist", "splats": n, "views": TRAIN_VIEWS, "width": FULL_W,
+          "height": FULL_H, "profile": "exact", "steps": MESH_STEPS,
+          "worlds_run": [f"{b}: {w} rank(s), meshes {m}" for b, w, m in mesh_worlds],
+          "worlds": dist_out, "phase_seconds": time.perf_counter() - t_phase,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+    for row in kernel_rows[:3]:
+        for label, out in dist_out.items():
+            row["launches_by_path"][f"mesh_dist ({label}), all ranks"] = sum(
+                res[key]["launches"][c] for res in out["ranks"] for key in res
+                if isinstance(res[key], dict) and "launches" in res[key]
+                for c in KERNEL_COUNTERS[row["name"]])
 
     # ---- phase 7: output checks on small inputs
     away = R.Camera.from_fov(

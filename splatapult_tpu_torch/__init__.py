@@ -3,7 +3,7 @@
 A second package beside the JAX one, sub-package for sub-package (``io/``,
 ``core/``, ``ops/``, ``utils/``, ``reference/``, ``render.py``, ``train.py``,
 ``densify.py``, ``stereo.py``, ``cluster.py``, ``diagnostics.py``,
-``cli.py``), plus ``kernels/`` (the hand-written CUDA kernels and their
+``parallel/``, ``cli.py``), plus ``kernels/`` (the hand-written CUDA kernels and their
 loader) and ``convert.py`` (carry parameters across from the JAX package). It
 imports torch and numpy only.
 
@@ -16,8 +16,10 @@ or a cluster of path views binned once for all its views (``stereo.py``,
 and the CLI. Training on one device: autograd through either pipeline, with
 the composite-backward kernel and its per-splat tail on the tiled one,
 ``train.fit_scene``, and adaptive density control
-(``densify.fit_scene_adaptive``: clone, split, prune). Entry
-points run on the GPU unless the caller passes ``device="cpu"``.
+(``densify.fit_scene_adaptive``: clone, split, prune). Several devices:
+``parallel/`` on torch.distributed (tile rows and views split over a
+DeviceMesh, ZeRO parameter sharding). Entry points run on the GPU unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """ctypes bindings for the native PLY codec (native/splatply.cpp in the repo).
 
 The hot part of scene loading — de-interleaving a multi-hundred-MB vertex blob
-into column arrays — runs in multi-threaded C++, mirroring how the reference
+into column arrays, and the inverse on export — runs in multi-threaded C++, mirroring how the reference
 keeps its PLY layer native (ref: src/ply.cpp).
 
 The library is built from ``native/splatply.cpp`` with the host's C++
@@ -91,6 +91,8 @@ def _load():
         lib.splatply_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                                         ctypes.POINTER(_Column), ctypes.c_int32, ctypes.c_void_p]
         lib.splatply_decode.restype = None
+        lib.splatply_encode.argtypes = lib.splatply_decode.argtypes
+        lib.splatply_encode.restype = None
         lib.splatply_version.restype = ctypes.c_int32
         if lib.splatply_version() != 1:
             raise OSError("unexpected splatply_version")
@@ -133,3 +135,19 @@ def decode_columns(vertices: np.ndarray, names) -> np.ndarray:
                                 cols, len(names), out.ctypes.data)
             return out
     return np.stack([vertices[nm].astype(np.float32) for nm in names], axis=-1)
+
+
+def encode_columns(values: np.ndarray, vertices: np.ndarray, names) -> None:
+    """[N, len(names)] float32 -> the named fields of a structured array, in
+    place (native if possible); the other bytes of each record are left as
+    they were."""
+    values = np.ascontiguousarray(values, np.float32)
+    lib = _load()
+    if lib is not None and vertices.flags["C_CONTIGUOUS"]:
+        cols = _columns_meta(vertices, names)
+        if cols is not None:
+            lib.splatply_encode(values.ctypes.data, vertices.shape[0], vertices.dtype.itemsize,
+                                cols, len(names), vertices.ctypes.data)
+            return
+    for i, nm in enumerate(names):
+        vertices[nm] = values[:, i].astype(vertices.dtype.fields[nm][0])

@@ -89,6 +89,9 @@ class TileGrid:
     # r % S == row_offset. mcap sizes the alignment pad to the OWNED tile
     # count (num_tiles / S).
     row_stride: int = 1
+    # tile rows added below the image (pixel y < 0), so that tiles_y divides
+    # by a row_stride: pixel coordinates stay those of the image's height
+    pad_rows: int = 0
 
     @property
     def tiles_x(self) -> int:
@@ -96,7 +99,7 @@ class TileGrid:
 
     @property
     def tiles_y(self) -> int:
-        return -(-self.height // self.tile_size)
+        return -(-self.height // self.tile_size) + self.pad_rows
 
     @property
     def num_tiles(self) -> int:
@@ -115,7 +118,7 @@ class TileGrid:
                max_instance_mult=6, alpha_cutoff=1.0 / 256.0, early_stop_eps=0.0,
                accum_dtype="float32", grad_sort_dtype="float32",
                packed_colors=False, forward_only=False, depth_bits=32,
-               packed_feats16=False, row_stride=1):
+               packed_feats16=False, row_stride=1, pad_rows=0):
         if block & (block - 1) != 0:
             raise ValueError("block must be a power of two")
         if accum_dtype not in ("float32", "bfloat16"):
@@ -125,11 +128,11 @@ class TileGrid:
         if depth_bits not in (16, 20, 32):
             raise ValueError(f"depth_bits {depth_bits!r}")
         emax = max(4096, -(-int(max_instance_mult * max(num_splats, 1)) // 4096) * 4096)
-        tiles_y = -(-height // tile_size)
+        tiles_y = -(-height // tile_size) + pad_rows
         if tiles_y % row_stride != 0:
             raise ValueError(
                 f"tiles_y={tiles_y} must divide by row_stride={row_stride} "
-                f"(pad the image height)")
+                f"(add pad_rows)")
         tiles = (-(-width // tile_size)) * tiles_y
         # worst-case alignment padding: < block per OWNED tile
         mcap = emax + (tiles // row_stride) * block
@@ -139,7 +142,7 @@ class TileGrid:
             early_stop_eps=early_stop_eps, accum_dtype=accum_dtype,
             grad_sort_dtype=grad_sort_dtype, packed_colors=packed_colors,
             forward_only=forward_only, depth_bits=depth_bits,
-            packed_feats16=packed_feats16, row_stride=row_stride,
+            packed_feats16=packed_feats16, row_stride=row_stride, pad_rows=pad_rows,
         )
 
 

@@ -810,7 +810,11 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
     every real instance, with zero columns). One prefix sum, read at the
     segment ends, and a first difference then give every segment's sum, in a
     fixed order: the result is the same from run to run, which a scatter with
-    atomics is not. Splats with no instance get exactly zero.
+    atomics is not. Splats with no instance get exactly zero. The prefix sum
+    runs in float64: the rounding of a difference of two prefixes is
+    relative to the running total, which over millions of slots can exceed
+    a splat's own sum by six orders of magnitude; in float64 that is still
+    below the float32 rounding of the splat's sum.
 
     With grad_sort_dtype="bfloat16" every per-instance value is rounded to
     bf16 (to nearest even) before the gather by the permutation, and the
@@ -824,9 +828,9 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
     # at the permutation
     perm = torch.sort(inst_splat, stable=True)[1]
     if grid.grad_sort_dtype == "bfloat16":
-        cols = d_inst.to(torch.bfloat16)[:, perm[: grid.emax]].float()
+        cols = d_inst.to(torch.bfloat16)[:, perm[: grid.emax]].double()
     else:
-        cols = d_inst[:, perm[: grid.emax]]  # [9, emax], splat-grouped
+        cols = d_inst[:, perm[: grid.emax]].double()  # [9, emax], splat-grouped
     end = torch.clamp_max(seg_offs + seg_cnt, grid.emax)
     at = torch.clamp(end - 1, 0, grid.emax - 1).long()
     # Inclusive prefix sum along the slots, read only at the segment ends, in
@@ -843,7 +847,8 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
                  + carry[:, torch.div(at, _PREFIX_BLOCK, rounding_mode="floor")])
     g = torch.where((end > 0)[None, :], prefix_at, 0.0)  # [9, N] prefix at segment ends
     d_feats = torch.zeros((n + 1, NUM_FEATS), dtype=d_inst.dtype, device=d_inst.device)
-    d_feats[:n, :NUM_GRAD_COLS] = torch.diff(g, dim=1, prepend=g.new_zeros((NUM_GRAD_COLS, 1))).t()
+    d_feats[:n, :NUM_GRAD_COLS] = torch.diff(
+        g, dim=1, prepend=g.new_zeros((NUM_GRAD_COLS, 1))).t().to(d_inst.dtype)
     return d_feats
 
 

@@ -17,7 +17,8 @@ from splatapult_tpu_torch.ops.composite import (
 )
 
 
-def _grid_from_config(config, num_splats: int, row_stride: int = 1) -> TileGrid:
+def _grid_from_config(config, num_splats: int, row_stride: int = 1,
+                      pad_rows: int = 0) -> TileGrid:
     return TileGrid.create(
         width=config.width,
         height=config.height,
@@ -34,6 +35,7 @@ def _grid_from_config(config, num_splats: int, row_stride: int = 1) -> TileGrid:
         depth_bits=config.depth_bits,
         packed_feats16=config.packed_feats16,
         row_stride=row_stride,
+        pad_rows=pad_rows,
     )
 
 

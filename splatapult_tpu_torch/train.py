@@ -7,8 +7,8 @@ update, on one device.
 
 This is deliberately a *library* (fit_scene), not a full trainer binary: the
 splat count stays static. Adaptive density control (densify.py) runs on top of
-_grad_stat_fit_steps' on-device gradient-norm accumulation. The multi-device
-training steps are not ported yet (ROADMAP queue 1 item 7).
+_grad_stat_fit_steps' on-device gradient-norm accumulation. With a mesh,
+fit_scene runs the multi-device steps of parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -154,12 +154,22 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets, config: RenderConf
     it is handed holds the live parameters after the update (their ``.grad``
     is that step's gradient), so copy what is to be kept.
 
-    mesh / param_shard (the multi-device steps) are not ported yet.
+    mesh: a DeviceMesh (parallel.make_render_mesh / make_pod_mesh; every
+    rank calls fit_scene alike, with the same scene, cameras and targets)
+    -> the sharded steps of parallel/mesh.py: tile rows over "tiles", views
+    over "views", one gradient all-reduce a step; every rank returns the
+    same scene and losses. param_shard=True (mesh only): ZeRO, each rank
+    holds one chunk of the splats and its optimizer state
+    (parallel.zero_fit_steps); ``optimizer`` is then called with that chunk.
+    It reads the losses back once per chunk, so it takes no callback
+    (ValueError). Both run the tiled pipeline and raise ValueError for
+    supersample > 1.
     """
-    if mesh is not None or param_shard:
-        raise NotImplementedError(
-            "fit_scene(mesh=..., param_shard=...) is not ported yet (ROADMAP "
-            "queue 1 item 7: multi-device)")
+    if param_shard and mesh is None:
+        raise ValueError("param_shard needs a mesh")
+    if mesh is not None:
+        return _fit_scene_sharded(scene, cameras, targets, config, steps, learning_rate,
+                                  optimizer, mesh, callback, param_shard)
     params = leaf_copy(scene)
     opt = (default_optimizer(params, learning_rate) if optimizer is None
            else optimizer(params))
@@ -176,5 +186,42 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets, config: RenderConf
         n = min(_FIT_CHUNK, steps - done)
         chunk = [train_step(params, opt, cameras, targets, config) for _ in range(n)]
         losses.extend(torch.stack(chunk).cpu().tolist())
+        done += n
+    return detached(params), losses
+
+
+def _fit_scene_sharded(scene, cameras, targets, config, steps, learning_rate, optimizer, mesh,
+                       callback, param_shard):
+    from splatapult_tpu_torch.parallel import mesh as pm
+
+    if param_shard and callback is not None:
+        raise ValueError(
+            "param_shard does not take a per-step callback: the ZeRO loop reads the "
+            "losses back once per chunk of steps")
+    factory = optimizer or (lambda s: default_optimizer(s, learning_rate))
+    targets = _targets_on(targets, scene.means.device)
+    losses = []
+    if param_shard:
+        opt, done = factory, 0
+        while done < steps:
+            n = min(_FIT_CHUNK, steps - done)
+            scene, opt, chunk = pm.zero_fit_steps(scene, cameras, targets, config, mesh, opt, n)
+            losses.extend(chunk.cpu().tolist())
+            done += n
+        return scene, losses
+    params = leaf_copy(scene)
+    opt = factory(params)
+    full = pm.shard_targets(targets, config, mesh)
+    if callback is not None:
+        for step in range(steps):
+            loss, _ = pm.sharded_train_step(params, cameras, full, config, mesh, opt)
+            losses.append(float(loss))
+            callback(step, params, losses[-1])
+        return detached(params), losses
+    done = 0
+    while done < steps:
+        n = min(_FIT_CHUNK, steps - done)
+        fit = pm.make_sharded_fit_steps(config, mesh, opt, n)
+        losses.extend(fit(params, cameras, full).cpu().tolist())
         done += n
     return detached(params), losses

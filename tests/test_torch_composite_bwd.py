@@ -178,10 +178,37 @@ def test_per_splat_sums_equal_scatter_add(garden):
     got = tc.per_splat_sums(d_inst, bins["inst_splat"], bins["seg_offs"], bins["seg_cnt"], grid)
     want = torch.zeros((N + 1, 9), dtype=torch.float64).index_add_(
         0, bins["inst_splat"].long(), d_inst.t().double())
-    # the prefix sum runs over all instances in float32: its rounding is
-    # relative to the running total (here up to ~100), not to one segment
+    # (the prefix sum runs in float64: test_per_splat_sums_keep_a_small_splat)
     np.testing.assert_allclose(got[:, :9].numpy(), want.numpy(), rtol=0, atol=2e-4)
     assert (got[:, 9:] == 0).all()
+
+
+def test_per_splat_sums_keep_a_small_splat():
+    """Splats of small gradients after a running total of 3e7: each sum keeps
+    its own precision (a float32 prefix sum would lose all of it, since a
+    difference of two prefixes rounds relative to the running total);
+    segments inside one prefix block and over two and more, and a splat with
+    no instance (exactly 0)."""
+    b = tc._PREFIX_BLOCK
+    counts = [3 * b + 7, 5, b, 4 * b + 3, 0, 9]  # instances of each splat, in splat order
+    n = len(counts)
+    grid = tb.TileGrid.create(width=32, height=32, num_splats=n, tile_size=16, block=8,
+                              max_instance_mult=sum(counts) / n)
+    rng = np.random.default_rng(4)
+    scale = np.repeat([1e4, 1e-3, 1.0, 1e2, 0.0, 1e-2], counts)
+    vals = (rng.uniform(0.5, 1.5, (9, len(scale))) * scale).astype(np.float32)
+    d_inst = np.zeros((9, grid.mcap), np.float32)
+    ids = np.full(grid.mcap, n, np.int32)
+    slots = rng.permutation(grid.mcap)[: len(scale)]  # any order: the tail sorts by splat
+    d_inst[:, slots], ids[slots] = vals, np.repeat(np.arange(n), counts)
+    cnt = np.asarray(counts, np.int32)
+    got = tc.per_splat_sums(torch.from_numpy(d_inst), torch.from_numpy(ids),
+                            torch.from_numpy(np.cumsum(cnt) - cnt).int(), torch.from_numpy(cnt),
+                            grid)[:n, :9].numpy()
+    want = np.stack([vals[:, np.repeat(np.arange(n), counts) == i].astype(np.float64).sum(1)
+                     for i in range(n)])
+    assert (got[4] == 0.0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
 def test_backward_contracts_raise(garden):

@@ -290,6 +290,27 @@ def test_native_codec_matches_numpy_path(tmp_path):
     assert native.available() == (native.path_used == "native")
 
 
+@pytest.mark.parametrize("n", [500, 70_000])  # 70,000 > 1 << 16 records: the threaded path
+def test_encode_columns_matches_jax(n):
+    """io/native.encode_columns writes the same bytes as the JAX package's
+    (tests/test_native.py's records: a padded dtype whose untouched bytes
+    stay zero, float64 and int32 fields beside float32 ones) and decodes
+    back to its input."""
+    from splatapult_tpu.io import native as jnative
+
+    rng = np.random.default_rng(7)
+    dt = np.dtype([("x", "<f4"), ("pad", "u1"), ("y", "<f4"), ("z", "<f8"), ("i", "<i4")])
+    vals = rng.standard_normal((n, 4)).astype(np.float32)
+    vals[:, 3] = np.round(vals[:, 3] * 1000.0)
+    names = ["x", "y", "z", "i"]
+    got, want = np.zeros(n, dt), np.zeros(n, dt)
+    native.encode_columns(vals, got, names)
+    jnative.encode_columns(vals, want, names)
+    assert got.tobytes() == want.tobytes()
+    assert (got["pad"] == 0).all()
+    np.testing.assert_array_equal(native.decode_columns(got, names), vals)
+
+
 def test_cli_host_commands_and_cameras_json_on_cpu(scene_dir, tmp_path, capsys, caplog):
     """path (--every, --batch), points, export --prune, info, save-pose (and
     the next render picks up the floor), render --camera-index

@@ -326,8 +326,9 @@ def test_fit_scene_callback_loop_matches_chunked_loop(fit_runs):
 
 
 def test_fit_scene_chunks_and_options(monkeypatch):
-    """More steps than one chunk; a custom optimizer factory; the deferred
-    multi-device options raise."""
+    """More steps than one chunk; a custom optimizer factory; the
+    multi-device options refuse what is not a mesh (their paths are
+    tests/test_torch_parallel.py's)."""
     start, jcams, targets, jcfg = _fit_case()
     scene, cams, cfg = _port_side(start, jcams, jcfg)
     monkeypatch.setattr(train, "_FIT_CHUNK", 2)
@@ -345,9 +346,9 @@ def test_fit_scene_chunks_and_options(monkeypatch):
     one = st.Camera(cam_to_world=cams.cam_to_world[0], proj=cams.proj[0])
     _, single = train.fit_scene(scene, one, np.asarray(targets)[:1], cfg, steps=1)
     assert np.isfinite(single).all()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         train.fit_scene(scene, cams, np.asarray(targets), cfg, steps=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         train.fit_scene(scene, cams, np.asarray(targets), cfg, steps=1, param_shard=True)
 
 
