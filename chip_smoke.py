@@ -49,7 +49,15 @@ needs no network. It
    event), the loss must fall, the gradients of the first step after each
    event be finite, each kernel launched views x steps times; then B1, B2
    (both launches) and B3 against their plain versions and timed at the
-   grown shape;
+   grown shape; and a train state checkpointed and resumed (fit_resume,
+   production profile, at the fit demo's 200,000-splat garden and the two
+   training views at 1920x1080): train.train_step with
+   train.default_optimizer for 4 steps, io/checkpoint.save_train_state, 4
+   steps live, then load_train_state into fresh leaves and a fresh optimizer
+   (load_state_dict) and the same 4 steps again: the resumed losses and
+   parameters equal to the live ones bit for bit; the checkpoint's size and
+   the seconds to write and read it; then B1, B2 and B3 against their plain
+   versions and timed at this phase's shape (the resumed scene, one view);
 6. renders the same scene through the rest of the viewer, counters zeroed
    just before each: supersample 2 at 1920x1080 (3840x2160 inside,
    calibrated at that size; render_supersample), the 8-view orbit path
@@ -101,9 +109,10 @@ needs no network. It
    (reference/raster.py) at 256x256, against the tiled pipeline, and one
    backward at 1024x768 with its peak memory held to GLOBAL_BWD_PEAK_BYTES,
    its gradients against the CPU's at 128x128 (render_global);
-9. drives the CLI: synth, render to PNG, render --packed-colors --fp16,
-   bench --profile production and fit (orbit rig) in subprocesses; then, in
-   this process, beside a cameras.json of orbit views: path --every 2 and
+9. drives the CLI: render to PNG through `python -m` in a process of its
+   own; synth, render --packed-colors --fp16, bench --profile production and
+   fit (orbit rig) in this process; then, beside a cameras.json of orbit
+   views: path --every 2 and
    path --batch, render --camera-index --show-cameras, render --stereo
    --eye-tan-angles, render --stereo --shared-bins (one binning, within one
    8-bit step of the per-eye PNG), render --supersample 2, render of a 2000-splat scene
@@ -215,6 +224,9 @@ LAYOUT_KNOBS = {"f32x16": {}, "i32x8": {"packed_colors": True}, "i32x4": {"packe
 N_RENDERS = 5
 TRAIN_VIEWS, TRAIN_STEPS_CALLBACK, TRAIN_STEPS_CHUNKED = 2, 4, 4
 ADAPTIVE_STEPS, ADAPTIVE_EVERY = 12, 4  # train_adaptive: densify events at steps 4 and 8
+# fit_resume: the fit demo's scene (splatapult_tpu_torch/tools/fit_demo.py);
+# steps before the checkpoint, and after it live and resumed
+RESUME_SPLATS, RESUME_STEPS, RESUME_LR = 200_000, 4, 2e-2
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative to the value, at most
 PATH_VIEWS = 8
 STEREO_IPD = 0.064
@@ -695,7 +707,7 @@ def main() -> int:
         """The tensors the kernels' wrappers receive on the render path (the
         instance rows in the config's layout); ``grid``: another grid than
         the config's (an interleaved band's, parallel/mesh.py)."""
-        d = R.prepare_splats(scene, cam, cfg)
+        d = R.prepare_splats(scene, cam, cfg, sort=False)
         grid = grid or tiled._grid_from_config(cfg, scene.num_gaussians, row_stride)
         table = B.expand_table(d["mean2d"], d["extent"], grid, d["depth"], row_offset)
         bins = B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"], row_offset)
@@ -978,7 +990,8 @@ def main() -> int:
             out["bound_vs_exact_with_depth_bits_20"] = 0.05
         else:
             with torch.no_grad():
-                rgb_max = float(R.prepare_splats(scene, cam, cfg_f)["rgb"].abs().max())
+                rgb_max = float(
+                    R.prepare_splats(scene, cam, cfg_f, sort=False)["rgb"].abs().max())
             out["bound_vs_exact_with_depth_bits_20"] = (
                 (2.0 ** -13 if cfg_f.packed_colors else 0.0)
                 + cfg_f.early_stop_eps * max(1.0, rgb_max) + 1e-6)  # + float rounding
@@ -1090,6 +1103,8 @@ def main() -> int:
             # atomics: faster or not, its result changes from run to run in
             # the last bits, the tail's does not)
             tail_args = (d_inst, bins["inst_splat"], bins["seg_offs"], bins["seg_cnt"])
+            # both column types, whichever the profile picks (production: bf16)
+            f32_grid = dataclasses.replace(grid, grad_sort_dtype="float32")
             bf16_grid = dataclasses.replace(grid, grad_sort_dtype="bfloat16")
 
             def scatter(dtype=torch.float32):
@@ -1097,12 +1112,12 @@ def main() -> int:
                                    device=dev).index_add_(0, splat_ids, d_inst.t().to(dtype))
 
             extra["tail_ms"] = {
-                "per_splat_sums": event_ms(lambda: C.per_splat_sums(*tail_args, grid), 10),
+                "per_splat_sums": event_ms(lambda: C.per_splat_sums(*tail_args, f32_grid), 10),
                 "per_splat_sums_bf16_columns": event_ms(
                     lambda: C.per_splat_sums(*tail_args, bf16_grid), 10),
                 "index_add_": event_ms(scatter, 10)}
-            d_feats = C.per_splat_sums(*tail_args, grid)
-            if not torch.equal(d_feats, C.per_splat_sums(*tail_args, grid)):
+            d_feats = C.per_splat_sums(*tail_args, f32_grid)
+            if not torch.equal(d_feats, C.per_splat_sums(*tail_args, f32_grid)):
                 raise AssertionError("per_splat_sums differs between two runs on the same "
                                      "inputs")
             exact = scatter(torch.float64)
@@ -1209,7 +1224,7 @@ def main() -> int:
         def culled_instances(sc):
             with torch.no_grad():
                 return sum(int(tiled.composite_tiled(
-                    R.prepare_splats(sc, v, train_cfg), train_cfg,
+                    R.prepare_splats(sc, v, train_cfg, sort=False), train_cfg,
                     return_aux=True)[1]["num_culled_instances"]) for v in view_list)
 
         train_culled = culled_instances(train_start)
@@ -1333,7 +1348,8 @@ def main() -> int:
         with torch.no_grad():
             for sc, c in chunk_starts:
                 culled.append(sum(int(tiled.composite_tiled(
-                    R.prepare_splats(sc, v, c), c, return_aux=True)[1]["num_culled_instances"])
+                    R.prepare_splats(sc, v, c, sort=False), c,
+                    return_aux=True)[1]["num_culled_instances"])
                     for v in view_list))
         sizes = [start.num_gaussians] + [e["num_splats"] for e in events]
         per_event = [{**e, "splats_before": before,
@@ -1375,6 +1391,102 @@ def main() -> int:
                 "launches": launches, "peak_memory_bytes": peak,
                 "kernels_at_grown_shape": {r["name"]: r for r in rows},
                 "kernels_at_grown_shape_extra": extra, "kernel_check_seconds": check_s,
+                "device": kind, "nvidia_smi_name_power_limit": smi}, launches
+
+    def resume_phase():
+        """train.train_step at the fit demo's shape (garden RESUME_SPLATS,
+        the two training views at 1920x1080, the production profile,
+        train.default_optimizer at RESUME_LR) from the perturbed garden
+        towards renders of the true one, counters zeroed just before:
+        RESUME_STEPS steps, io/checkpoint.save_train_state, RESUME_STEPS
+        steps live; load_train_state into fresh leaves with a fresh optimizer
+        (load_state_dict) and the same RESUME_STEPS steps again. The resumed
+        losses and final parameters must equal the live ones bit for bit ->
+        (the phase's JSON, the launch counts)."""
+        from splatapult_tpu_torch.io import checkpoint as CK
+
+        true_s = make_garden_scene(RESUME_SPLATS, seed=0, device=dev)
+        r_cfg = R.calibrate_config(true_s, views, R.apply_profile(
+            dataclasses.replace(base, forward_only=False), "production"))
+        with torch.no_grad():
+            targets = torch.stack([R.render(true_s, v, r_cfg) for v in view_list])
+        params = train.leaf_copy(perturbed(true_s))
+        del true_s
+        opt = train.default_optimizer(params, RESUME_LR)
+        marks = []
+
+        def steps(sc, o):
+            """RESUME_STEPS steps, a CUDA event after each -> their losses
+            (device scalars, read after the phase)."""
+            out = []
+            for _ in range(RESUME_STEPS):
+                out.append(train.train_step(sc, o, views, targets, r_cfg))
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        first = steps(params, opt)
+        saved = train.detached(train.leaf_copy(params))
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CK.save_train_state(tmp, params, opt, RESUME_STEPS)
+            write_s = time.perf_counter() - t0
+            ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+            live = steps(params, opt)
+            t0 = time.perf_counter()
+            loaded, state, step = CK.load_train_state(tmp, RESUME_STEPS, device=dev)
+            read_s = time.perf_counter() - t0
+        resumed = train.leaf_copy(loaded)
+        opt2 = train.default_optimizer(resumed, RESUME_LR)
+        opt2.load_state_dict(state)
+        again = steps(resumed, opt2)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [a.elapsed_time(b) for i, (a, b) in enumerate(zip(marks[:-1], marks[1:]))
+                   if i not in (RESUME_STEPS, 2 * RESUME_STEPS)]  # span the write, the read
+        n_launch = TRAIN_VIEWS * 3 * RESUME_STEPS
+        if any(c != n_launch for c in launches.values()):
+            raise AssertionError(f"fit_resume: kernel launches {launches}, expected "
+                                 f"{n_launch} each (views x steps)")
+        if step != RESUME_STEPS or not all(
+                torch.equal(getattr(loaded, f.name), getattr(saved, f.name))
+                for f in dataclasses.fields(saved)):
+            raise AssertionError("fit_resume: the loaded scene is not the saved one")
+        losses = {k: torch.stack(v).tolist() for k, v in
+                  (("first", first), ("live", live), ("resumed", again))}
+        if not all(math.isfinite(x) for v in losses.values() for x in v) or not (
+                losses["live"][-1] < losses["first"][0]):
+            raise AssertionError(f"fit_resume: losses not finite or not falling: {losses}")
+        diff = {f.name: float((getattr(resumed, f.name) - getattr(params, f.name)).abs().max())
+                for f in dataclasses.fields(params)}
+        if losses["resumed"] != losses["live"] or any(diff.values()):
+            raise AssertionError(f"fit_resume: the resumed run differs from the live one: "
+                                 f"losses {losses}, parameters' max abs difference {diff}")
+        del params, opt, opt2, loaded, state, saved
+        # the kernels at this phase's shape (the resumed scene, the first
+        # view, its calibration), against their plain versions
+        t_check = time.perf_counter()
+        rows, extra = composite_rows(dataclasses.replace(r_cfg, forward_only=True), None,
+                                     exact_tables=True, at=(resumed, view_list[0]))
+        check_s = time.perf_counter() - t_check
+        del resumed, targets
+        return {"phase": "fit_resume", "splats": RESUME_SPLATS, "views": TRAIN_VIEWS,
+                "width": FULL_W, "height": FULL_H, "profile": R.profile_name(r_cfg),
+                "layout": layout_of(tiled._grid_from_config(r_cfg, RESUME_SPLATS)),
+                "max_instance_mult": r_cfg.max_instance_mult, "steps_each": RESUME_STEPS,
+                "losses": losses, "resumed_equals_live": "bit for bit",
+                "checkpoint_mb": ckpt_bytes / 1e6, "checkpoint_write_s": write_s,
+                "checkpoint_read_s": read_s, "ms_per_step_median": statistics.median(step_ms),
+                "ms_per_step_all": step_ms, "launches": launches, "peak_memory_bytes": peak,
+                "kernels_at_shape": {r["name"]: r for r in rows},
+                "kernels_at_shape_extra": extra, "kernel_check_seconds": check_s,
                 "device": kind, "nvidia_smi_name_power_limit": smi}, launches
 
     def fwd_launches(launches):
@@ -1436,6 +1548,19 @@ def main() -> int:
                                      (train_json["phase"], train_launches))}
         kernel_rows += rows
     del exact_img, exact20_img
+
+    # ---- phase 5c: a train state checkpointed on the card and resumed
+    resume_json, resume_launches = resume_phase()
+    emit(resume_json)
+    for row in kernel_rows:  # B1 and the production rows (i32x8) of B2 and B3
+        at_resume = resume_json["kernels_at_shape"].get(row["name"])
+        if at_resume is not None:
+            counter = row["name"].split("[")[0]
+            row["launches_by_path"]["fit_resume"] = sum(
+                resume_launches[c] for c in KERNEL_COUNTERS[counter])
+            row["at_fit_resume_shape"] = {
+                k: at_resume[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "shape")}
 
     # ---- phase 6: the rest of the viewer on the same scene
     fwd_once = {"expand_fill": 1, "composite_fwd_segments": 1, "composite_fwd_combine": 1,
@@ -1505,7 +1630,7 @@ def main() -> int:
     want_launches("render_supersample", ss_launches, 1)
     ss_ms, ss_all = frame_ms(lambda: R.render(scene, cam, ss_cfg))
     with torch.no_grad():
-        d_hi = R.prepare_splats(scene, cam, hi_cfg)
+        d_hi = R.prepare_splats(scene, cam, hi_cfg, sort=False)
         hi_img, aux = tiled.composite_tiled(d_hi, hi_cfg, return_aux=True)
         ss_culled = int(aux["num_culled_instances"])
         # the capacity a calibration at the output size (the JAX package's
@@ -1841,7 +1966,7 @@ def main() -> int:
     with torch.no_grad():
         pv_demand = max(int(B.instance_demand(d["mean2d"], d["extent"],
                                               tiled._grid_from_config(cfg, n)))
-                        for d in (R.prepare_splats(scene, c, cfg) for c in cl_list))
+                        for d in (R.prepare_splats(scene, c, cfg, sort=False) for c in cl_list))
     cl_ms = {"per_view_forward": timed(lambda: R.render_batch(scene, cl_cams, pv_cfg),
                                        CLUSTER_VIEWS),
              "per_view_forward_backward": timed(loss_step(lambda p: R.render_batch(
@@ -1981,7 +2106,7 @@ def main() -> int:
                                                        band_layout=lay)
                  for d in MESH_SHARDS for lay in BAND_LAYOUTS}
     with torch.no_grad():
-        prepared = [R.prepare_splats(scene, v, exact_fwd) for v in view_list]
+        prepared = [R.prepare_splats(scene, v, exact_fwd, sort=False) for v in view_list]
         # [view][rank] demands; the interleaved bands' sum is the demand of
         # the full grid at the padded height
         band_demands = {(d, lay): [PM.band_instance_demands(scene, v, exact_fwd, d, lay).tolist()
@@ -2065,8 +2190,9 @@ def main() -> int:
         leaf_m = train.leaf_copy(start_m)
         loss_m = 0.0
         for r in range(2):
-            lr_ = PM.band_loss(R.prepare_splats(leaf_m, view0, c2), tb[r * band_h:(r + 1) * band_h],
-                               r, 2, c2, lay, FULL_H * FULL_W * 4)
+            lr_ = PM.band_loss(R.prepare_splats(leaf_m, view0, c2, sort=False),
+                               tb[r * band_h:(r + 1) * band_h], r, 2, c2, lay,
+                               FULL_H * FULL_W * 4)
             lr_.backward()
             loss_m += float(lr_.detach())
         if not abs(loss_m - ref_loss) <= 1e-5 * ref_loss:
@@ -2082,12 +2208,13 @@ def main() -> int:
                for (d, lay) in band_demands}
     with torch.no_grad():
         busy = {"unsharded_frame": timed(lambda: R.render(scene, view0, view_cfg)),
-                "prepare_splats": timed(lambda: R.prepare_splats(scene, view0, exact_fwd))}
+                "prepare_splats": timed(
+                    lambda: R.prepare_splats(scene, view0, exact_fwd, sort=False))}
         for d in MESH_SHARDS:
             chunk = -(-n // d)
             part = PM._rows(PM._pad_scene(scene, chunk * d), 0, chunk)
-            busy[f"prepare_splats of N/{d}"] = timed(lambda: R.prepare_splats(part, view0,
-                                                                             exact_fwd))
+            busy[f"prepare_splats of N/{d}"] = timed(
+                lambda: R.prepare_splats(part, view0, exact_fwd, sort=False))
             for lay in BAND_LAYOUTS:
                 c = band_cfgs[(d, lay)]
                 for r in range(d):
@@ -2285,29 +2412,28 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         ply, png = os.path.join(tmp, "garden.ply"), os.path.join(tmp, "garden.png")
-        cli = [sys.executable, "-m", "splatapult_tpu_torch.cli"]
         size = ["--width", "640", "--height", "384"]
 
-        def run_cli(args):
-            return subprocess.run(cli + args, cwd=ROOT, check=True, timeout=600,
-                                  stdout=subprocess.PIPE, text=True).stdout
-
-        run_cli(["synth", "garden", "--splats", "20000", "-o", ply])
-        run_cli(["render", ply, "-o", png, *size,
-                 "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"])
+        cli_in_process(["synth", "garden", "--splats", "20000", "-o", ply])
+        # the module's entry point in a process of its own, once; the other
+        # commands run in this process (a process takes seconds to reach
+        # the card)
+        subprocess.run([sys.executable, "-m", "splatapult_tpu_torch.cli", "render", ply, "-o", png,
+                        *size, "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"],
+                       cwd=ROOT, check=True, timeout=600, stdout=subprocess.DEVNULL)
         png_bytes = os.path.getsize(png)
         if png_bytes <= 0:
             raise AssertionError("cli render wrote an empty PNG")
         if load_png(png).shape != (384, 640, 3):
             raise AssertionError("cli render wrote a PNG of the wrong size")
         packed_png = os.path.join(tmp, "packed.png")
-        run_cli(["render", ply, "-o", packed_png, *size, "--packed-colors", "--fp16",
-                 "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"])
+        cli_in_process(["render", ply, "-o", packed_png, *size, "--packed-colors", "--fp16",
+                        "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"])
         packed_diff = float(np.abs(load_png(packed_png) - load_png(png)).max())
         if not packed_diff <= 0.05:
             raise AssertionError(f"cli render --packed-colors --fp16: {packed_diff} from the "
                                  f"exact PNG")
-        bench_line = json.loads(run_cli(
+        bench_line = json.loads(cli_in_process(
             ["bench", ply, *size, "--profile", "production", "--iters", "3",
              "--eye", "4.2", "1.6", "0", "--target", "0", "0.8", "0"]).strip().splitlines()[-1])
         if bench_line["profile"] != "production" or not bench_line["ms_per_frame"] > 0.0:
@@ -2317,13 +2443,13 @@ def main() -> int:
         small = load_gaussian_ply(ply, device="cpu")
         rig = _orbit_rig(small, 2, 640, 384, fovy=np.deg2rad(45.0), device="cpu")
         center = [repr(float(x)) for x in small.means.numpy().mean(0)]
-        for i in range(2):  # in this process: `render` ran in a subprocess above
+        for i in range(2):
             eye = [repr(float(x)) for x in rig.cam_to_world[i, :3, 3]]
             cli_in_process(["render", ply, "-o", os.path.join(tmp, f"target{i}.png"), *size,
                             "--eye", *eye, "--target", *center])
         dim_ply, fitted_ply = os.path.join(tmp, "dim.ply"), os.path.join(tmp, "fitted.ply")
         save_gaussian_ply(dim_ply, dataclasses.replace(small, sh=small.sh * 0.8))
-        fit_line = json.loads(run_cli(
+        fit_line = json.loads(cli_in_process(
             ["fit", dim_ply, "--targets", os.path.join(tmp, "target*.png"), "-o", fitted_ply,
              "--steps", "5"]).strip().splitlines()[-1])
         if (fit_line["steps"], fit_line["views"], fit_line["splats"]) != (5, 2, 20000):

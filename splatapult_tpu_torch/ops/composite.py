@@ -319,9 +319,16 @@ def _block_weights(f, px, py, active, grid: TileGrid):
     dy = py[:, None, :] - f[:, :, F_MY, None]
     qh = (f[:, :, F_QA, None] * dx * dx + f[:, :, F_QB, None] * dx * dy
           + f[:, :, F_QC, None] * dy * dy + f[:, :, F_LNA, None])
-    w = torch.exp(qh)
     if grid.alpha_cutoff > 0.0:
-        w = torch.where(qh > math.log(grid.alpha_cutoff), w, 0.0)
+        # the discarded weights are 0 whatever exp gives them, so their
+        # exponents are clamped at the cutoff first: on the CPU, exp of large
+        # negative arguments takes a slow path (about 40x), and most
+        # (instance, pixel) pairs of a block lie there. The kept weights are
+        # the same bits.
+        cut = math.log(grid.alpha_cutoff)
+        w = torch.where(qh > cut, torch.exp(torch.clamp_min(qh, cut)), 0.0)
+    else:
+        w = torch.exp(qh)
     return torch.where(active[:, None, None], w, 0.0)
 
 
@@ -818,10 +825,11 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
 
     With grad_sort_dtype="bfloat16" every per-instance value is rounded to
     bf16 (to nearest even) before the gather by the permutation, and the
-    gather moves 2-byte columns; the prefix sums stay f32. Numerically this is
-    the JAX package's _pack_bf16_pairs / _unpack_bf16_pairs, which pack pairs
-    of bf16 columns into one int32 payload of its sort; here only the keys
-    are sorted, so there is no payload to pack.
+    gather moves 2-byte columns; the prefix sums still run in float64.
+    Numerically this is the JAX package's _pack_bf16_pairs /
+    _unpack_bf16_pairs, which pack pairs of bf16 columns into one int32
+    payload of its sort; here only the keys are sorted, so there is no
+    payload to pack.
     """
     n = seg_offs.shape[0]
     # torch.sort takes one key: sort the ids, carry the columns by gathering

@@ -514,6 +514,23 @@ def sharded_train_step(scene: GaussianScene, cameras: Camera, targets, config: R
     return loss, grads
 
 
+def make_sharded_train_step(config: RenderConfig, mesh, optimizer=None, sh_psum_chunks: int = 1,
+                            grad_allreduce: str = "psum", shard_prepare: bool = True,
+                            band_layout: str = "interleaved"):
+    """-> step(scene, cameras, targets): sharded_train_step with these
+    arguments bound, returning its (loss, grads). The JAX package builds and
+    caches a compiled program here; eager PyTorch compiles nothing, and the
+    torch ``optimizer`` holds its own state, so the step takes no
+    opt_state."""
+    _check_step_options(sh_psum_chunks, grad_allreduce)
+
+    def step(scene: GaussianScene, cameras: Camera, targets):
+        return sharded_train_step(scene, cameras, targets, config, mesh, optimizer,
+                                  shard_prepare=shard_prepare, band_layout=band_layout)
+
+    return step
+
+
 def make_sharded_fit_steps(config: RenderConfig, mesh, optimizer, steps: int,
                            sh_psum_chunks: int = 1, grad_allreduce: str = "psum",
                            shard_prepare: bool = True, band_layout: str = "interleaved"):

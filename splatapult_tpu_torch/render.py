@@ -237,14 +237,15 @@ def _front_to_back_order(depth: torch.Tensor, mask: torch.Tensor):
 
 
 def prepare_splats(scene: GaussianScene, camera: Camera, config: RenderConfig,
-                   sort: bool = False):
+                   sort: bool = True):
     """Shared front end: bake + project + SH -> dict of per-splat tensors.
 
-    With ``sort=False`` (the tiled pipeline's form, and the default here) the
-    tensors stay in scene order: ops/binning.bin_splats orders instances by a
-    per-instance depth sort key instead. With ``sort=True`` (the global
+    With ``sort=True`` (the default, as in the JAX package, and the global
     pipeline's form) they are sorted front-to-back with culled splats pushed
     to the back carrying zero alpha, in the JAX package's order bit for bit.
+    With ``sort=False`` (the tiled pipeline's form) the tensors stay in scene
+    order: ops/binning.bin_splats orders instances by a per-instance depth
+    sort key instead.
     """
     means = scene.means
     cov3 = transforms.bake_covariance(scene.quats, scene.log_scales)
@@ -418,7 +419,7 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig) -> torch.
     if pipeline != "tiled":
         raise ValueError(f"unknown pipeline {config.pipeline!r}")
     # unsorted prepare: the binning sort carries the depth key instead
-    return composite_tiled(prepare_splats(scene, camera, config), config)
+    return composite_tiled(prepare_splats(scene, camera, config, sort=False), config)
 
 
 def _rendered_config(config: RenderConfig) -> RenderConfig:
@@ -524,7 +525,7 @@ def calibrate_config(scene: GaussianScene, cameras: Camera,
                            num_splats=n, tile_size=rendered.tile_size)
 
     def demand_of(cam: Camera) -> torch.Tensor:
-        d = prepare_splats(scene, cam, rendered)
+        d = prepare_splats(scene, cam, rendered, sort=False)
         return instance_demand(d["mean2d"], d["extent"], grid)
 
     if cameras.cam_to_world.ndim == 2:

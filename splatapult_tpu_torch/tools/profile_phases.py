@@ -240,7 +240,7 @@ def main(argv=None) -> int:
     frame_ms = _event_ms(lambda: R.render(scene, cam, cfg), args.iters)
 
     # the stages of ops/tiled.composite_tiled, one at a time on kept inputs
-    d = R.prepare_splats(scene, cam, cfg)
+    d = R.prepare_splats(scene, cam, cfg, sort=False)
     bins = B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"])
     feats = tiled.pack_features(d["mean2d"], d["conic"], d["rgb"], d["alpha"])
     inst = C.gather_rows(C.pack_src(feats, grid), bins["inst_splat"].long())
@@ -253,7 +253,7 @@ def main(argv=None) -> int:
     if not torch.equal(C.gather_rows(packed, splat_ids), packed[splat_ids]):
         raise AssertionError("gather_rows differs from torch's row indexing")
     phases = {
-        "prepare_splats": lambda: R.prepare_splats(scene, cam, cfg),
+        "prepare_splats": lambda: R.prepare_splats(scene, cam, cfg, sort=False),
         "bin_splats": lambda: B.bin_splats(d["mean2d"], d["extent"], grid, d["depth"]),
         "bin_splats/expand_table": lambda: B.expand_table(
             d["mean2d"], d["extent"], grid, d["depth"]),
@@ -291,7 +291,7 @@ def main(argv=None) -> int:
     launches_per_step = {k: v / (args.iters + 1) for k, v in kernels.LAUNCH_COUNTS.items()}
 
     # the step's stages, each timed alone on kept inputs
-    dp = R.prepare_splats(params, cam, tcfg)
+    dp = R.prepare_splats(params, cam, tcfg, sort=False)
     feats_p = tiled.pack_features(dp["mean2d"], dp["conic"], dp["rgb"], dp["alpha"])
     bins_p = B.bin_splats(dp["mean2d"].detach(), dp["extent"], tgrid, dp["depth"])
     out_p = C.composite_from_feats(feats_p, bins_p, tgrid)
@@ -325,7 +325,7 @@ def main(argv=None) -> int:
 
     out_leaf = out_p.detach().requires_grad_(True)
     train_phases = {
-        "prepare_splats (with graph)": lambda: R.prepare_splats(params, cam, tcfg),
+        "prepare_splats (with graph)": lambda: R.prepare_splats(params, cam, tcfg, sort=False),
         "bin_splats": lambda: B.bin_splats(dp["mean2d"].detach(), dp["extent"], tgrid,
                                            dp["depth"]),
         "pack_features+gather": lambda: C.gather_rows(C.pack_src(tiled.pack_features(

@@ -284,7 +284,7 @@ def test_capacity_is_recalibrated_after_an_event():
 
     def culled(c):
         with torch.no_grad():
-            d = R.prepare_splats(seen["scene"], cam, c)
+            d = R.prepare_splats(seen["scene"], cam, c, sort=False)
             return int(composite_tiled(d, c, return_aux=True)[1]["num_culled_instances"])
 
     assert culled(cfg) > 0

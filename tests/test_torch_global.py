@@ -151,6 +151,7 @@ def ref():
         stereo_cam = _debug_camera(64, 48)
         return {"images": {k: jrender(garden_scene, cam, cfg) for k, cfg in GARDEN_CFGS.items()},
                 "prepared": jprepare_splats(garden_scene, cam, GARDEN_CFGS["cutoff"], sort=True),
+                "prepared_default": jprepare_splats(garden_scene, cam, GARDEN_CFGS["cutoff"]),
                 "batch": jrender_batch(debug, batch, BATCH_CFG), "cam": cam, "batch_cams": batch,
                 "stereo": {case: stereo_cam.stereo_pair(0.2, **kwargs)
                            for case, kwargs in STEREO_CASES.items()},
@@ -184,7 +185,7 @@ def _jax_order(depth, mask):
 def test_front_to_back_order_is_jax_order_bit_for_bit(ref):
     jscene, jcam = ref["garden"]
     scene, cam, cfg = _port_side(jscene, jcam, GARDEN_CFGS["cutoff"])
-    d = R.prepare_splats(scene, cam, cfg)
+    d = R.prepare_splats(scene, cam, cfg, sort=False)
     depth, mask = d["depth"].detach(), d["mask"]
     # ties: depths rounded to a coarse grid, so many keys are equal
     tied = torch.round(depth * 4.0) / 4.0
@@ -195,6 +196,24 @@ def test_front_to_back_order_is_jax_order_bit_for_bit(ref):
         np.testing.assert_array_equal(inv.numpy()[want], np.arange(len(want)))
     assert len(torch.unique(tied[mask])) < int(mask.sum()) // 4
     assert 0 < int(mask.sum()) < len(mask)
+
+
+def test_prepare_defaults_to_the_jax_sorted_order(ref):
+    """prepare_splats with no ``sort`` argument: the JAX call with none, which
+    sorts; the port's rows are its sort=True rows bit for bit."""
+    (jscene, jcam), want = ref["garden"], ref["prepared_default"]
+    scene, cam, cfg = _port_side(jscene, jcam, GARDEN_CFGS["cutoff"])
+    got = R.prepare_splats(scene, cam, cfg)
+    sorted_ = R.prepare_splats(scene, cam, cfg, sort=True)
+    assert set(got) == set(want) == set(sorted_)
+    for k in got:
+        assert torch.equal(got[k], sorted_[k]), k
+    mask = want["mask"]
+    np.testing.assert_array_equal(got["mask"].numpy(), mask)
+    np.testing.assert_array_equal(want["depth"], ref["prepared"]["depth"])
+    np.testing.assert_allclose(got["depth"].numpy()[mask], want["depth"][mask], rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(np.diff(got["depth"].numpy()[mask]) >= 0)
 
 
 def test_prepare_sorted_matches_jax(ref):
@@ -331,7 +350,7 @@ def test_calibrated_supersample_drops_no_instance():
                                max_instance_mult=c.max_instance_mult).emax
 
     with torch.no_grad():
-        d = R.prepare_splats(scene, cam, rendered)
+        d = R.prepare_splats(scene, cam, rendered, sort=False)
         need = int(instance_demand(d["mean2d"], d["extent"],
                                    TileGrid.create(width=128, height=96, num_splats=n,
                                                    tile_size=8)))

@@ -554,7 +554,7 @@ def test_band_images_match_jax_render_sharded(jref, layout, d):
     bit for bit; the JAX package lifts mean2d by the padding instead, which
     rounds it."""
     scene, cams, _ = _port_inputs()
-    splats = prepare_splats(scene, _first(cams), CFG)
+    splats = prepare_splats(scene, _first(cams), CFG, sort=False)
     bands = torch.cat([PM._band_fn(layout)(splats, r, d, CFG) for r in range(d)])
     assert bands.shape == (PM._padded_height(CFG, d), CFG.width, 4)
     if layout == "interleaved":
@@ -579,6 +579,8 @@ def _entry_points():
         "calibrate_config_sharded": lambda c: PM.calibrate_config_sharded(scene, cams, c, mesh),
         "sharded_train_step": lambda c: PM.sharded_train_step(
             train.leaf_copy(scene), cams, targets, c, mesh),
+        "make_sharded_train_step": lambda c: PM.make_sharded_train_step(c, mesh)(
+            train.leaf_copy(scene), cams, targets),
         "make_sharded_fit_steps": lambda c: PM.make_sharded_fit_steps(
             c, mesh, None, 1)(train.leaf_copy(scene), cams, targets),
         "zero_fit_steps": lambda c: PM.zero_fit_steps(scene, cams, targets, c, mesh, _adam, 1),
@@ -613,6 +615,8 @@ def test_xla_scheduler_workarounds_raise(kw):
         PM.sharded_train_step(train.leaf_copy(scene), cams, targets, CFG, mesh, **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         PM.make_sharded_fit_steps(CFG, mesh, None, 1, **kw)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        PM.make_sharded_train_step(CFG, mesh, None, **kw)
 
 
 @pytest.mark.parametrize("fn", ["make_render_mesh", "initialize_distributed"])

@@ -158,7 +158,7 @@ def test_prepare_splats_matches(garden, knobs):
     jscene, jcam, tscene, tcam = garden
     jcfg = JRenderConfig(width=96, height=64, pipeline="tiled", **knobs)
     want = jprepare_splats(jscene, jcam, jcfg, sort=False)
-    got = prepare_splats(tscene, tcam, convert.config_from_jax(jcfg))
+    got = prepare_splats(tscene, tcam, convert.config_from_jax(jcfg), sort=False)
     assert set(got) == set(want)
     mask = np.asarray(want["mask"])
     np.testing.assert_array_equal(got["mask"].numpy(), mask)
@@ -182,7 +182,7 @@ def test_prepare_masks_nan_colour(garden):
     scene = dataclasses.replace(tscene, means=means)
     from splatapult_tpu_torch.render import RenderConfig
 
-    d = prepare_splats(scene, tcam, RenderConfig(width=96, height=64))
+    d = prepare_splats(scene, tcam, RenderConfig(width=96, height=64), sort=False)
     assert not bool(d["mask"][5])
     assert torch.isfinite(d["rgb"]).all() and float(d["alpha"][5]) == 0.0
     assert (d["extent"][5] == 0).all()

@@ -337,7 +337,7 @@ def test_importing_the_port_loads_no_jax_module():
         "before = set(sys.modules)\n"
         "import splatapult_tpu_torch, splatapult_tpu_torch.cli, splatapult_tpu_torch.convert\n"
         "import splatapult_tpu_torch.io.synth, splatapult_tpu_torch.utils.image\n"
-        "import splatapult_tpu_torch.densify\n"
+        "import splatapult_tpu_torch.densify, splatapult_tpu_torch.tools.fit_demo\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'splatapult_tpu' or m.startswith('splatapult_tpu.'))\n"
@@ -347,6 +347,24 @@ def test_importing_the_port_loads_no_jax_module():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("subpackage", ["io", "utils", "ops", "core", "parallel"])
+def test_subpackages_re_export_the_jax_names(subpackage):
+    """``from splatapult_tpu_torch.<subpackage> import <name>`` works for every
+    name of the JAX subpackage's ``__all__``; parallel.mesh also has the
+    JAX step builder, which neither package's parallel/__init__ exports."""
+    import importlib
+
+    want = importlib.import_module(f"splatapult_tpu.{subpackage}").__all__
+    port = importlib.import_module(f"splatapult_tpu_torch.{subpackage}")
+    assert set(want) <= set(port.__all__), sorted(set(want) - set(port.__all__))
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    if subpackage == "parallel":
+        from splatapult_tpu_torch.parallel import mesh
+
+        assert callable(mesh.make_sharded_train_step)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -221,7 +221,7 @@ def test_demand_and_calibration_match_jax(ref, case):
     assert int(stereo.stereo_instance_demand(scene, cam, cfg, ipd)) == want
     # a single eye's demand is below the union's
     left = stereo._eye_cameras(cam, ipd)[0]
-    d = prepare_splats(scene, left, cfg)
+    d = prepare_splats(scene, left, cfg, sort=False)
     assert int(tb.instance_demand(d["mean2d"], d["extent"],
                                   _grid_from_config(cfg, scene.num_gaussians))) <= want
     # calibrate_config_stereo is capacity_mult_for_demand of that demand
