@@ -97,7 +97,10 @@ needs no network. It
    cards where the machine has several; each rank's render_sharded, one
    sharded_train_step and 3 steps of zero_fit_steps against its own
    single-device render, step and 3 replicated sharded steps, its launches
-   counted; every rank must agree);
+   counted, and the SH all-reduce each replicated step issued inside its
+   backward counted and timed from the issue to the backward's end; A / B /
+   C and the overlap of tools/profile_overlap on the 1 x 2 gloo mesh, a
+   mechanism check for two ranks sharing one card; every rank must agree);
 7. checks the output: finite, the expected shape, agreeing with the
    JAX-made golden images under tests/golden/ on the two small scenes, the
    GPU render agreeing with the port's CPU render (exact and production),
@@ -240,6 +243,7 @@ GLOBAL_BWD_PEAK_BYTES = 8 * 2 ** 30
 MESH_SHARDS = (2, 4)  # mesh_bands: tile shards (ranks) run in turn in one process
 BAND_LAYOUTS = ("interleaved", "contiguous")
 MESH_STEPS = 3  # mesh_dist: steps of the replicated and the ZeRO fit on each mesh
+OVERLAP_ITERS = 2  # mesh_dist: timed rounds of A, B and C (after two to warm up)
 MESH_WORLD_TIMEOUT_S = 300.0
 
 
@@ -529,7 +533,13 @@ def mesh_rank(rank, world, backend, port, out_dir, meshes):
     sharded fit and of zero_fit_steps; each held against this process's
     single-device render and step (composite tolerance; gradients within
     2e-4 of each field's largest) and ZeRO's losses against the replicated
-    fit's (rtol 1e-4). "nccl": torchrun's environment, initialize_distributed,
+    fit's (rtol 1e-4). The SH all-reduce that every replicated step issued
+    inside its backward is counted (1 a step; in a one-rank world it runs no
+    collective), with the milliseconds from its issue to the backward's end
+    by CUDA events (parallel.mesh.sh_allreduce_trace). On the 1 x 2 mesh of
+    the gloo world, after the counted run, A / B / C and the overlap from
+    tools/profile_overlap.measure_overlap (two ranks sharing this card: a
+    mechanism check). "nccl": torchrun's environment, initialize_distributed,
     card ``rank``; "gloo": init_process_group itself, every rank on card 0.
     Pickles its results into ``out_dir``."""
     import pickle
@@ -541,6 +551,7 @@ def mesh_rank(rank, world, backend, port, out_dir, meshes):
     from splatapult_tpu_torch.ops.tiled import _grid_from_config
     from splatapult_tpu_torch.parallel import distributed as PD
     from splatapult_tpu_torch.parallel import mesh as PM
+    from splatapult_tpu_torch.tools.profile_overlap import measure_overlap
 
     R = importlib.import_module("splatapult_tpu_torch.render")
     if backend == "nccl":
@@ -584,14 +595,15 @@ def mesh_rank(rank, world, backend, port, out_dir, meshes):
         dist.barrier()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        img = PM.render_sharded(scene, view_list[0], img_cfg, mesh)
-        leaf = train.leaf_copy(start)
-        loss, _ = PM.sharded_train_step(leaf, views, full, band_cfg, mesh)
-        rep = train.leaf_copy(start)
-        rep_losses = PM.make_sharded_fit_steps(band_cfg, mesh, factory(rep), MESH_STEPS)(
-            rep, views, full)
-        zero, _, zero_losses = PM.zero_fit_steps(start, views, targets, band_cfg, mesh, factory,
-                                                 MESH_STEPS)
+        with PM.sh_allreduce_trace() as markers:
+            img = PM.render_sharded(scene, view_list[0], img_cfg, mesh)
+            leaf = train.leaf_copy(start)
+            loss, _ = PM.sharded_train_step(leaf, views, full, band_cfg, mesh)
+            rep = train.leaf_copy(start)
+            rep_losses = PM.make_sharded_fit_steps(band_cfg, mesh, factory(rep), MESH_STEPS)(
+                rep, views, full)
+            zero, _, zero_losses = PM.zero_fit_steps(start, views, targets, band_cfg, mesh,
+                                                     factory, MESH_STEPS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(kernels.LAUNCH_COUNTS)
@@ -603,6 +615,14 @@ def mesh_rank(rank, world, backend, port, out_dir, meshes):
                 "composite_bwd": per * (1 + 2 * MESH_STEPS)}
         if launches != want:
             raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+        # the replicated steps' SH all-reduces: the step, the fit's steps
+        # (ZeRO has none); a one-rank world runs no collective
+        issued = [(m.issued, m.collectives) for m in markers]
+        want_issued = [(1, 1 if world > 1 else 0)] * (1 + MESH_STEPS)
+        if issued != want_issued:
+            raise AssertionError(f"{what}: SH all-reduces (issued, collectives) a step "
+                                 f"{issued}, expected {want_issued}")
+        windows = [m.window_ms() for m in markers]
         img_err = composite_close(img, ref_img, f"{what}: render_sharded against render")
         if not torch.equal(img, ref_img):  # the interleaved bands are render's rows
             raise AssertionError(f"{what}: render_sharded is not render's image bit for bit")
@@ -615,9 +635,23 @@ def mesh_rank(rank, world, backend, port, out_dir, meshes):
         param_diff = {f: float((getattr(zero, f) - getattr(rep, f).detach()).abs().max())
                       for f in fields}
         demands = [PM.band_instance_demands(start, v, exact, t_sh).tolist() for v in view_list]
+        overlap = None
+        if backend == "gloo" and (v_sh, t_sh) == (1, 2):
+            overlap = measure_overlap(train.leaf_copy(start), views, full, band_cfg, mesh,
+                                      iters=OVERLAP_ITERS)
+            overlap["label"] = "mechanism check: two ranks sharing one card over gloo"
+            if overlap["sh_allreduces_per_step"] != [1] * OVERLAP_ITERS or not all(
+                    math.isfinite(overlap[k]) for k in (
+                        "full_step_ms", "no_collective_ms", "collectives_ms",
+                        "sh_allreduce_issue_to_backward_end_ms")):
+                raise AssertionError(f"{what}: overlap measurement {overlap}")
         out[f"{v_sh}x{t_sh}"] = {
             "seconds": seconds, "launches": launches, "render_max_abs_err": img_err,
             "step_loss": float(loss), "step_grad_max_scaled_err": grad_err,
+            "sh_allreduces_issued_collectives_per_step": issued,
+            "sh_allreduce_issue_to_backward_end_ms": {
+                "step": windows[0], "fit_steps": windows[1:]},
+            "overlap": overlap,
             "replicated_fit_losses": rep_l, "zero_fit_losses": zero_l,
             "zero_vs_replicated_params_max_abs_diff": param_diff,
             "max_instance_mult": band_cfg.max_instance_mult,
@@ -2212,7 +2246,7 @@ def main() -> int:
                     lambda: R.prepare_splats(scene, view0, exact_fwd, sort=False))}
         for d in MESH_SHARDS:
             chunk = -(-n // d)
-            part = PM._rows(PM._pad_scene(scene, chunk * d), 0, chunk)
+            part = PM._LocalRows(scene, 0, chunk)
             busy[f"prepare_splats of N/{d}"] = timed(
                 lambda: R.prepare_splats(part, view0, exact_fwd, sort=False))
             for lay in BAND_LAYOUTS:
@@ -2272,9 +2306,33 @@ def main() -> int:
                         or res[key]["step_loss"] != results[0][key]["step_loss"]):
                     raise AssertionError(f"mesh_dist {backend}: rank {r} disagrees with rank 0")
         dist_out[f"{backend}, {world} rank(s)"] = {"seconds": secs, "ranks": results}
+    # the in-backward SH all-reduce, per world, mesh and rank: the
+    # collectives issued a step, the compute left after the issue; A / B / C
+    # on two ranks sharing this card (a mechanism check: one card cannot show
+    # overlap across cards)
+    sh_allreduce, overlap = {}, {}
+    for label, out in dist_out.items():
+        for r, res in enumerate(out["ranks"]):
+            for key, m in res.items():
+                if not (isinstance(m, dict) and "launches" in m):
+                    continue
+                sh_allreduce[f"{label}, mesh {key}, rank {r}"] = {
+                    k: m[k] for k in ("sh_allreduces_issued_collectives_per_step",
+                                      "sh_allreduce_issue_to_backward_end_ms")}
+                if m["overlap"] is not None:
+                    overlap[f"{label}, mesh {key}, rank {r}"] = m["overlap"]
+    if not overlap:
+        raise AssertionError("mesh_dist: no overlap measurement was made")
     emit({"phase": "mesh_dist", "splats": n, "views": TRAIN_VIEWS, "width": FULL_W,
           "height": FULL_H, "profile": "exact", "steps": MESH_STEPS,
           "worlds_run": [f"{b}: {w} rank(s), meshes {m}" for b, w, m in mesh_worlds],
+          "sh_allreduce": sh_allreduce,
+          "overlap_mechanism_check": {
+              "what": "tools/profile_overlap.measure_overlap: A full step, B no collective, "
+                      "C collectives alone, overlap (B + C - A) / C, the prepare "
+                      "replicated, on two gloo ranks sharing one card (a one-rank NCCL "
+                      "world runs no collective)",
+              "by_rank": overlap},
           "worlds": dist_out, "phase_seconds": time.perf_counter() - t_phase,
           "device": kind, "nvidia_smi_name_power_limit": smi})
     for row in kernel_rows[:3]:

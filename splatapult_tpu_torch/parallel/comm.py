@@ -1,11 +1,11 @@
 """Collectives over one process group, for the sharded render and train steps.
 
-Three operations, each along dim 0 and each summing where it reduces:
+Four operations, each along dim 0 and each summing where it reduces:
 ``all_gather`` (differentiable: its backward is ``reduce_scatter``, the
-transpose JAX gives ``lax.all_gather``), ``reduce_scatter`` and
-``all_reduce_``. NCCL runs them on the card and gloo on the host; gloo also
-takes CUDA tensors for all three (torch 2.11 on an H100), which is how two
-ranks share one card, where NCCL refuses.
+transpose JAX gives ``lax.all_gather``), ``reduce_scatter``, ``all_reduce_``
+and its asynchronous form ``all_reduce_async_``. NCCL runs them on the card
+and gloo on the host; gloo also takes CUDA tensors for all of them (torch
+2.11 on an H100), which is how two ranks share one card, where NCCL refuses.
 """
 
 from __future__ import annotations
@@ -32,6 +32,20 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def all_reduce_async_(x: torch.Tensor, group):
+    """Start summing ``x`` over the group, in place -> the collective's
+    ``dist.Work``, or None when the group has one rank (nothing to do).
+
+    ``x`` must not be read or written until ``work.wait()`` has returned: on
+    NCCL ``wait`` makes the CURRENT stream wait for the collective, so call it
+    on the stream that reads ``x`` next; on gloo it blocks the host until
+    the sum is in ``x`` (and, for a CUDA tensor, orders the current stream
+    after the copy back)."""
+    if dist.get_world_size(group) == 1:
+        return None
+    return dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group, async_op=True)
 
 
 class _AllGather(torch.autograd.Function):

@@ -14,11 +14,15 @@ card, gloo on the CPU (parallel/comm.py).
   ``row_offset = t``), or a contiguous band. The projection and SH are
   either replicated or sharded over the same dim (``shard_prepare``).
 - **View parallelism:** a [V]-batched camera is split across "views".
-- **Gradients:** each rank differentiates its own band loss; one all-reduce
-  of the five gradients (flattened into one buffer) over the world completes
-  them. Under ZeRO (``zero_fit_steps``) each rank owns a chunk of the splats
-  and its Adam state instead, and the collectives' backward passes complete
-  the chunk's gradients: no gradient all-reduce remains.
+- **Gradients:** each rank differentiates its own band loss. The SH
+  gradient (48 of the 61 gradient floats a splat at degree 3) is summed over
+  the world INSIDE the rank's last backward, by an asynchronous all-reduce
+  started as soon as it is complete (``_psum_in_bwd``), while the
+  projection's backward still runs; one terminal all-reduce of the four
+  small gradients and the loss (flattened into one buffer) completes the
+  rest. Under ZeRO (``zero_fit_steps``) each rank owns a chunk of the
+  splats and its Adam state instead, and the collectives' backward passes
+  complete the chunk's gradients: no gradient all-reduce remains.
 
 Every rank computes the same thing from the replicated scene, so the layout
 functions and the per-rank band functions (``_composite_band_interleaved``,
@@ -34,7 +38,9 @@ supersample, would return an output-size image without the box filter
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import torch
 import torch.distributed as dist
@@ -49,7 +55,12 @@ from splatapult_tpu_torch.ops.tiled import (
     composite_tiled,
     pack_features,
 )
-from splatapult_tpu_torch.parallel.comm import all_gather, all_reduce_, reduce_scatter
+from splatapult_tpu_torch.parallel.comm import (
+    all_gather,
+    all_reduce_,
+    all_reduce_async_,
+    reduce_scatter,
+)
 from splatapult_tpu_torch.render import (
     CAPACITY_BUCKET,
     Camera,
@@ -129,23 +140,47 @@ def _pad_scene(scene: GaussianScene, n_pad: int) -> GaussianScene:
     (a zero quat would hit the normalize divide), opacity logit -20 (alpha
     ~2e-9), zeros elsewhere. Padded rows project to finite values and are
     sliced away after a gather. Differentiable (a concatenation)."""
-    extra = n_pad - scene.means.shape[0]
-    if extra == 0:
+    if n_pad == scene.means.shape[0]:
         return scene
-
-    def pad(x, fill=0.0):
-        return torch.cat([x, x.new_full((extra,) + tuple(x.shape[1:]), fill)])
-
-    quat_pad = scene.quats.new_zeros((extra, 4))
-    quat_pad[:, 0] = 1.0
-    return GaussianScene(means=pad(scene.means), sh=pad(scene.sh),
-                         opacities=pad(scene.opacities, -20.0),
-                         log_scales=pad(scene.log_scales),
-                         quats=torch.cat([scene.quats, quat_pad]))
+    rows = _LocalRows(scene, 0, n_pad)
+    return GaussianScene(**{f: getattr(rows, f) for f in _FIELDS})
 
 
-def _rows(scene: GaussianScene, lo: int, hi: int) -> GaussianScene:
-    return GaussianScene(**{f: getattr(scene, f)[lo:hi] for f in _FIELDS})
+class _LocalRows:
+    """Rows [lo, hi) of a scene, the rows past its end INERT (_pad_scene), in
+    the form prepare_splats reads them; ``sh`` is cut out only when it is
+    read.
+
+    prepare_splats reads sh after the projection, for the SH evaluation. Of
+    the nodes ready, the autograd engine runs the one created last (an
+    AccumulateGrad before any), and cutting rows out makes a cheap node:
+    cut out before the projection, sh's rows would wait for the projection's
+    whole backward, and the SH gradient would complete, and its all-reduce
+    start (_psum_in_bwd), only at the backward's end. Cut out when read,
+    they run right after the SH evaluation's backward, before the
+    projection's."""
+
+    def __init__(self, scene: GaussianScene, lo: int, hi: int):
+        self._sh, self._lo, self._hi = scene.sh, lo, hi
+        self.means = self._cut(scene.means)
+        self.opacities = self._cut(scene.opacities, -20.0)
+        self.log_scales = self._cut(scene.log_scales)
+        self.quats = self._cut(scene.quats, None)
+
+    def _cut(self, x: torch.Tensor, fill=0.0) -> torch.Tensor:
+        """Rows [lo, hi) of ``x``, the rows past its end ``fill`` (None:
+        identity quaternions)."""
+        n, lo, hi = x.shape[0], self._lo, self._hi
+        if hi <= n:
+            return x[lo:hi]
+        pad = x.new_full((hi - max(lo, n),) + tuple(x.shape[1:]), 0.0 if fill is None else fill)
+        if fill is None:
+            pad[:, 0] = 1.0
+        return torch.cat([x[lo:n], pad]) if lo < n else pad
+
+    @property
+    def sh(self) -> torch.Tensor:
+        return self._cut(self._sh)
 
 
 # prepare_splats' per-splat outputs as the columns of one [N, 14] table, so
@@ -192,8 +227,7 @@ def prepare_splats_sharded(scene: GaussianScene, camera: Camera, config: RenderC
     d = mesh.get_local_rank("tiles")
     n = scene.means.shape[0]
     chunk = -(-n // nd)
-    local = _rows(_pad_scene(scene, chunk * nd), d * chunk, (d + 1) * chunk)
-    sp = prepare_splats(local, camera, config, sort=False)
+    sp = prepare_splats(_LocalRows(scene, d * chunk, (d + 1) * chunk), camera, config, sort=False)
     return _unpack_prepared(all_gather(_pack_prepared(sp), group)[:n])
 
 
@@ -430,6 +464,116 @@ def _check_step_options(sh_psum_chunks: int, grad_allreduce: str) -> None:
             "and are not ported (ROADMAP queue 1 item 16)")
     if grad_allreduce != "psum":
         raise ValueError(f"grad_allreduce {grad_allreduce!r}")
+    if sh_psum_chunks < 1:
+        raise ValueError(f"sh_psum_chunks {sh_psum_chunks} < 1")
+
+
+# The markers of the replicated steps run inside sh_allreduce_trace(), one a
+# step (None outside it: the step then times nothing).
+_SH_TRACE = None
+
+
+@contextlib.contextmanager
+def sh_allreduce_trace():
+    """Trace the replicated step's in-backward SH all-reduce while inside ->
+    a list that gets each step's _psum_in_bwd marker, timed: ``issued`` and
+    ``collectives`` (1 and 1 a step; 1 and 0 in a one-rank world) and
+    ``window_ms()``, the compute left after the issue to hide the sum under.
+    tools/profile_overlap.py and chip_smoke.py read it."""
+    global _SH_TRACE
+    outer, _SH_TRACE = _SH_TRACE, []
+    try:
+        yield _SH_TRACE
+    finally:
+        _SH_TRACE = outer
+
+
+class _psum_in_bwd:
+    """The JAX package's marker of this name: identity forward; the gradient
+    summed over the group inside the backward, as soon as it is complete.
+
+    JAX marks the value (a custom_vjp whose backward psums the cotangent).
+    Here the marker is a post-accumulate-grad hook on the LEAF, armed for
+    one ``backward()``; the forward is not touched::
+
+        with _psum_in_bwd(scene.sh, group) as marker:
+            loss.backward()   # the step's last backward that reaches the leaf
+        ...                   # other collectives, in the same order on every rank
+        marker.wait()         # before anything reads leaf.grad
+
+    When the engine has accumulated the leaf's gradient of that backward
+    (``leaf.grad`` then also holds every earlier backward's part), the hook
+    starts the sum (all_reduce_async_, one collective) in place on
+    ``leaf.grad``; the rest of the backward runs while it travels. The
+    engine accumulates a leaf once per backward, as soon as all of its
+    gradient is in (AccumulateGrad runs before any other ready node), so
+    the sum starts once, right after the SH evaluation's backward and
+    before the projection's (the sharded prepare cuts the sh rows out late
+    for this: _LocalRows), so before ``means.grad``, which the SH
+    evaluation's view directions also feed, is complete. A second
+    accumulation while armed raises: it would add into a buffer that a
+    collective is writing. If the backward never reached the leaf, the exit
+    starts the sum of what ``leaf.grad`` holds (zeros if None), so every
+    rank issues the same collectives in the same order. The hook is removed
+    on exit, also on an exception.
+
+    ``wait()`` waits for the collective (on NCCL by making the CURRENT
+    stream wait: call it on the stream that reads the gradient next) and
+    returns ``leaf.grad``. ``issued`` counts the sums started, and
+    ``collectives`` those that ran a collective (none in a one-rank group).
+    With ``timed``, ``t_issue`` and ``t_end`` are the host clock's start and
+    the backward's end (the exit), and ``window_ms()`` the time between them
+    by CUDA events for a CUDA leaf, by the host clock otherwise."""
+
+    def __init__(self, leaf: torch.Tensor, group=None, timed: bool = False):
+        self.leaf, self.group, self.timed = leaf, group, timed
+        self.issued = self.collectives = 0
+        self.t_issue = self.t_end = None
+        self._events = [None, None]
+        self._work = self._handle = None
+
+    def _mark(self, i: int) -> float:
+        if self.leaf.is_cuda:
+            self._events[i] = torch.cuda.Event(enable_timing=True)
+            self._events[i].record()
+        return time.perf_counter()
+
+    def _start(self, leaf: torch.Tensor) -> None:
+        if self.issued:
+            raise RuntimeError("_psum_in_bwd: a second gradient accumulation into a leaf "
+                               "whose sum is already in flight")
+        if self.timed:
+            self.t_issue = self._mark(0)
+        self._work = all_reduce_async_(leaf.grad, self.group)
+        self.issued, self.collectives = 1, int(self._work is not None)
+
+    def __enter__(self):
+        self._handle = self.leaf.register_post_accumulate_grad_hook(self._start)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._handle.remove()
+        if exc_type is None:
+            if not self.issued:
+                if self.leaf.grad is None:
+                    self.leaf.grad = torch.zeros_like(self.leaf)
+                self._start(self.leaf)
+            if self.timed:
+                self.t_end = self._mark(1)
+        return False
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+        g = self.leaf.grad
+        self._work = self.leaf = None  # a traced marker keeps no tensor alive
+        return g
+
+    def window_ms(self) -> float:
+        if self._events[0] is not None:
+            self._events[1].synchronize()
+            return self._events[0].elapsed_time(self._events[1])
+        return (self.t_end - self.t_issue) * 1e3
 
 
 def band_loss(splats, target, rank: int, num_shards: int, config: RenderConfig,
@@ -443,19 +587,26 @@ def band_loss(splats, target, rank: int, num_shards: int, config: RenderConfig,
     return torch.sum(torch.where(valid[:, None, None], (band - target) ** 2, 0.0)) / denom
 
 
-def _band_losses(params, cams, tgt, config: RenderConfig, mesh, band_layout: str, prepare):
+def _band_losses(params, cams, tgt, config: RenderConfig, mesh, band_layout: str, prepare,
+                 last_backward=None):
     """Forward and backward of this rank's band loss for each of its views ->
     the summed loss (a detached device scalar). Each view's loss is over
     V_total x H x W x 4, so the losses summed over the ranks are the mean
     over every view's pixels; its gradient accumulates in the leaves'
-    ``.grad``."""
+    ``.grad``. ``last_backward``, a context manager, is entered around the
+    last view's backward alone (the _psum_in_bwd marker: the gradient is
+    complete only there)."""
     shape = _shape(mesh)
     _, t = _coords(mesh)
     denom = len(cams) * shape["views"] * config.height * config.width * 4
     total = None
-    for cam, tg in zip(cams, tgt):
+    for i, (cam, tg) in enumerate(zip(cams, tgt)):
         loss = band_loss(prepare(params, cam), tg, t, shape["tiles"], config, band_layout, denom)
-        loss.backward()
+        if last_backward is not None and i == len(cams) - 1:
+            with last_backward:
+                loss.backward()
+        else:
+            loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     return total
 
@@ -467,21 +618,30 @@ def _sharded_value_and_grad(scene: GaussianScene, cameras: Camera, targets,
     view (a device scalar, the same on every rank); the gradients, complete
     and the same on every rank, are left in the leaves' ``.grad``.
 
-    Each rank differentiates its own band loss; then ONE all-reduce (sum)
-    over the world, of the five gradients and the loss flattened into one
-    buffer, completes them."""
+    Each rank differentiates its own band loss. The SH gradient is summed
+    over the world inside the rank's last backward (_psum_in_bwd), as soon
+    as it is complete; then one
+    terminal all-reduce of the four small gradients and the loss, flattened
+    into one buffer, completes the rest. ``sh`` stays out of it: a second
+    sum would count it twice."""
     _refuse_supersample(config, "the sharded train step")
     leaves = [getattr(scene, f) for f in _FIELDS]
     for p in leaves:
         p.grad = None
     prep = _prepare_fn(mesh, shard_prepare)
+    marker = _psum_in_bwd(scene.sh, None, timed=_SH_TRACE is not None)
     loss = _band_losses(scene, _rank_views(cameras, mesh), _target_block(targets, config, mesh),
-                        config, mesh, band_layout, lambda s, cam: prep(s, cam, config))
+                        config, mesh, band_layout, lambda s, cam: prep(s, cam, config),
+                        last_backward=marker)
+    small = [p for f, p in zip(_FIELDS, leaves) if f != "sh"]
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                      for p in leaves] + [loss.reshape(1)])
+                      for p in small] + [loss.reshape(1)])
     all_reduce_(flat, None)
+    marker.wait()
+    if _SH_TRACE is not None:
+        _SH_TRACE.append(marker)
     offset = 0
-    for p in leaves:
+    for p in small:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
     return flat[-1]
@@ -503,6 +663,7 @@ def sharded_train_step(scene: GaussianScene, cameras: Camera, targets, config: R
     is a device scalar (the mean over all views). The tiled pipeline runs
     whatever ``config.pipeline`` says.
 
+    The SH gradient is all-reduced inside the backward (_psum_in_bwd).
     ``sh_psum_chunks > 1`` and ``grad_allreduce="ring"`` are XLA scheduler
     workarounds and raise NotImplementedError (ROADMAP queue 1 item 16)."""
     _check_step_options(sh_psum_chunks, grad_allreduce)
@@ -554,8 +715,8 @@ def make_sharded_fit_steps(config: RenderConfig, mesh, optimizer, steps: int,
 # --------------------- ZeRO-style parameter sharding ---------------------
 #
 # The step above keeps the scene replicated: every rank holds all N splats'
-# parameters and Adam state, and an all-reduce of the whole gradient
-# completes each step. prepare_splats is the only consumer of the parameters
+# parameters and Adam state, and all-reduces of the whole gradient complete
+# each step. prepare_splats is the only consumer of the parameters
 # and works per splat, so the parameters themselves can be split, over BOTH
 # mesh dims: rank (v, t) owns chunk t * V + v of the padded scene, as leaf
 # tensors of its own, and its optimizer holds the Adam state of that chunk

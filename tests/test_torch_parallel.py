@@ -33,6 +33,11 @@ Tolerances, and why:
   (tests/test_parallel.py): the band sums and the all-reduce add in another
   order. This is the case that tells a reduce-scatter backward of the
   feature gather (shard_prepare) from a slice of the local cotangent;
+- the in-backward SH all-reduce (_psum_in_bwd): the marker's sums of small
+  integers exactly; the step on a degree-3 scene (K = 16) of N - 1 splats
+  (the row padding binds) against jax.value_and_grad as above; the
+  schedule by the host clock (the marker's issue time against every
+  accumulation into means.grad);
 - fit_scene chunked against per-step: rtol 2e-5; ZeRO against the
   replicated sharded fit: losses rtol 2e-5, parameters rtol 1e-4 / atol
   2e-6 (the JAX package's own tolerances); ZeRO losses against the JAX
@@ -116,6 +121,16 @@ def _adam(scene):
     return torch.optim.Adam([getattr(scene, f) for f in FIELDS], lr=1e-2)
 
 
+def _degree3_arrays():
+    """The scene with tests/test_parallel.py's degree-3 colours (K = 16
+    coefficients, seed 6), its first N - 1 = 47 splats: every rank's rows of
+    the sharded prepare, sh's included, are cut out, and the last padded."""
+    arrays = _scene_arrays()
+    arrays["sh"] = (np.random.default_rng(6).standard_normal((48, 3, 16)) * 0.3).astype(
+        np.float32)
+    return {f: a[:-1] for f, a in arrays.items()}
+
+
 # ---------------------------------------------------------------- rank bodies
 
 
@@ -169,11 +184,57 @@ def _mesh_cases(mesh):
     return out
 
 
+def _sh_allreduce_cases(mesh):
+    """The in-backward SH all-reduce (_psum_in_bwd) on one mesh -> numpy
+    results and host times (the times differ between ranks)."""
+    _, cams, targets = _port_inputs()
+    scene = convert.scene_from_numpy(_degree3_arrays(), device="cpu")
+    full = PM.shard_targets(targets, CFG, mesh)
+    # the marker alone, untraced: identity forward, the gradient summed over
+    # the world once, a weight of 1 + tile rank so that the sum shows
+    w = 1.0 + mesh.get_local_rank("tiles")
+    x = torch.arange(8.0, requires_grad=True)
+    with PM._psum_in_bwd(x) as marker:
+        y = torch.sum(x * w)
+        y.backward()
+    out = {"marker": {"value": float(y), "local_value": float(torch.arange(8.0).sum() * w),
+                      "grad": marker.wait().numpy().copy(), "issued": marker.issued,
+                      "collectives": marker.collectives,
+                      "timed": (marker.t_issue, marker.t_end) != (None, None)}}
+    # the step, traced, the projection sharded and replicated: its loss and
+    # gradients, and the host times of the SH all-reduce's start and of
+    # every accumulation into means.grad and quats.grad (which only the
+    # projection's backward completes)
+    out["step"] = {}
+    for sp in (True, False):
+        params = train.leaf_copy(scene)
+        done = {"means": [], "quats": []}
+        hooks = [getattr(params, f).register_post_accumulate_grad_hook(
+            lambda p, t=t: t.append(time.perf_counter())) for f, t in done.items()]
+        with PM.sh_allreduce_trace() as trace:
+            loss, grads = PM.sharded_train_step(params, cams, full, CFG, mesh, shard_prepare=sp)
+        for hook in hooks:
+            hook.remove()
+        out["step"][f"shard_prepare={sp}"] = {
+            "loss": float(loss), "grads": _np_scene(grads),
+            "markers": [(m.issued, m.collectives) for m in trace],
+            "sh_issue": trace[-1].t_issue, "backward_end": trace[-1].t_end,
+            "accumulated": done}
+    params = train.leaf_copy(scene)
+    with PM.sh_allreduce_trace() as trace:
+        fit_losses = PM.make_sharded_fit_steps(CFG, mesh, _adam(params), 2)(params, cams, full)
+    out["fit"] = {"losses": fit_losses.tolist(),
+                  "markers": [(m.issued, m.collectives) for m in trace]}
+    return out
+
+
 def _rank_world4(rank, store, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=4)
     res = {name: _mesh_cases(PM.make_render_mesh(t, v, device_type="cpu"))
            for name, (v, t) in MESHES.items()}
+    res["sh_allreduce"] = {name: _sh_allreduce_cases(PM.make_render_mesh(t, v, device_type="cpu"))
+                           for name, (v, t) in MESHES.items()}
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
@@ -266,8 +327,9 @@ def worlds(tmp_path_factory):
 def jref():
     """Every JAX reference of this file:
     - "plain": render of view 0, render_batch, jax.value_and_grad of the L2
-      loss of render_batch, instance_demand and band_instance_demands (D = 2,
-      4 and 8, both layouts) — one program;
+      loss of render_batch (also on the degree-3 scene of N - 1 splats),
+      instance_demand and band_instance_demands (D = 2, 4 and 8, both
+      layouts) — one program;
     - "sharded": render_sharded of view 0 on a 2- and a 4-tile mesh, both
       layouts — one program per mesh (a program holds one mesh);
     - "fit": train.fit_scene without a mesh, optax.adam(1e-2), on the first
@@ -296,14 +358,18 @@ def jref():
     cams = JCamera(cam_to_world=jnp.asarray(c2w), proj=jnp.asarray(proj))
     cam0 = JCamera(cam_to_world=cams.cam_to_world[0], proj=cams.proj[0])
     tg = jnp.asarray(targets)
+    scene3 = JScene(**{f: jnp.asarray(a) for f, a in _degree3_arrays().items()})
 
     @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
-    def plain(scene, cams, cam0, tg):
+    def plain(scene, scene3, cams, cam0, tg):
         sp = jprepare(scene, cam0, jcfg, sort=False)
-        loss, grads = jax.value_and_grad(
-            lambda s: jnp.mean((jrender_batch(s, cams, jcfg) - tg) ** 2))(scene)
+        value_and_grad = jax.value_and_grad(
+            lambda s: jnp.mean((jrender_batch(s, cams, jcfg) - tg) ** 2))
+        loss, grads = value_and_grad(scene)
+        loss3, grads3 = value_and_grad(scene3)
         return {"render": jrender(scene, cam0, jcfg), "render_batch": jrender_batch(
                     scene, cams, jcfg), "loss": loss, "grads": grads,
+                "degree3_loss": loss3, "degree3_grads": grads3,
                 # the full grid's demand at each padded height, y lifted as
                 # the interleaved bands lift it
                 "demand": {d: jb.instance_demand(
@@ -337,11 +403,12 @@ def jref():
     # tracing holds the GIL, XLA's compiling does not: each program compiles
     # in a thread while the next one is traced
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        plain_exe = pool.submit(plain.lower(scene, cams, cam0, tg).compile)
+        plain_exe = pool.submit(plain.lower(scene, scene3, cams, cam0, tg).compile)
         sharded_exe = {d: pool.submit(sharded_program(d).lower(scene, cam0).compile)
                        for d in (2, 4)}
         fit_losses = pool.submit(fit)
-        out = {"plain": jax.tree.map(np.asarray, plain_exe.result()(scene, cams, cam0, tg)),
+        out = {"plain": jax.tree.map(np.asarray,
+                                     plain_exe.result()(scene, scene3, cams, cam0, tg)),
                "sharded": {d: jax.tree.map(np.asarray, exe.result()(scene, cam0))
                            for d, exe in sharded_exe.items()},
                "calibrated": calibrated(), "fit": np.asarray(fit_losses.result())}
@@ -477,6 +544,63 @@ def test_two_rank_world_from_torchrun_environment(worlds, jref):
         np.testing.assert_allclose(zl, l1, rtol=2e-5, err_msg=m)
         for k in FIELDS:
             np.testing.assert_allclose(zs[k], rs[k], rtol=1e-4, atol=2e-6, err_msg=f"{m} {k}")
+
+
+# sum over the ranks of the marker test's weight, 1 + tile rank
+SH_ALLREDUCE_SUM = {"2x2": 2 * (1 + 2), "1x4": 1 + 2 + 3 + 4}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_psum_in_bwd_marker_semantics(worlds, mesh):
+    """The counterpart of tests/test_parallel.py's: identity forward (each
+    rank's value is its own), and the gradient summed over the world exactly
+    once, with weights 1 + tile rank so that the sum shows; outside
+    sh_allreduce_trace the marker times nothing."""
+    for res in worlds["4"].results():
+        m = res["sh_allreduce"][mesh]["marker"]
+        assert m["value"] == m["local_value"]
+        np.testing.assert_array_equal(m["grad"], np.full(8, float(SH_ALLREDUCE_SUM[mesh])))
+        assert (m["issued"], m["collectives"], m["timed"]) == (1, 1, False)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_train_step_degree3_matches_jax_value_and_grad(worlds, jref, mesh):
+    """The in-backward SH all-reduce on a degree-3 scene (K = 16) of N - 1
+    splats, the projection sharded (every rank's sh rows cut out where they
+    are read, the last rank's padded) and replicated, against
+    jax.value_and_grad of the unsharded loss: loss rtol 1e-5, each field
+    within 2e-4 of its largest; every rank the same."""
+    want_loss, want = float(jref["plain"]["degree3_loss"]), jref["plain"]["degree3_grads"]
+    assert np.asarray(want.sh).shape == (47, 3, 16)
+    steps = [{k: {f: s[f] for f in ("loss", "grads")} for k, s in
+              r["sh_allreduce"][mesh]["step"].items()} for r in worlds["4"].results()]
+    _same_on_every_rank(steps)
+    for key, s in steps[0].items():
+        np.testing.assert_allclose(s["loss"], want_loss, rtol=1e-5, err_msg=key)
+        _grads_close(s["grads"], want, f"{mesh} {key}")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sh_allreduce_issued_in_last_backward_before_means(worlds, mesh):
+    """The step's schedule on every rank, the projection sharded and
+    replicated: one SH all-reduce a step, started inside the LAST view's
+    backward (after the earlier view's accumulations) and before that
+    backward accumulates means.grad (which the SH evaluation's view
+    directions also feed) and quats.grad (which only the projection's
+    backward completes): the projection's backward is left to hide it. Each
+    step of make_sharded_fit_steps issues one too."""
+    per = 2 // MESHES[mesh][0]  # views a rank
+    for r, res in enumerate(worlds["4"].results()):
+        for key, s in res["sh_allreduce"][mesh]["step"].items():
+            what = f"rank {r} {key}"
+            assert s["markers"] == [(1, 1)], what
+            for field, times in s["accumulated"].items():
+                assert len(times) == per, (what, field)
+                assert s["sh_issue"] < times[-1] <= s["backward_end"], (what, field)
+                if per > 1:
+                    assert times[-2] < s["sh_issue"], (what, field)
+        fit = res["sh_allreduce"][mesh]["fit"]
+        assert fit["markers"] == [(1, 1)] * 2 and np.all(np.isfinite(fit["losses"])), r
 
 
 # ----------------------------------------------- in this process, no group
@@ -617,6 +741,15 @@ def test_xla_scheduler_workarounds_raise(kw):
         PM.make_sharded_fit_steps(CFG, mesh, None, 1, **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         PM.make_sharded_train_step(CFG, mesh, None, **kw)
+
+
+def test_sh_psum_chunks_below_one_raises():
+    scene, cams, targets = _port_inputs()
+    mesh = {"views": 1, "tiles": 2}
+    with pytest.raises(ValueError, match="sh_psum_chunks"):
+        PM.sharded_train_step(train.leaf_copy(scene), cams, targets, CFG, mesh, sh_psum_chunks=0)
+    with pytest.raises(ValueError, match="sh_psum_chunks"):
+        PM.make_sharded_fit_steps(CFG, mesh, None, 1, sh_psum_chunks=0)
 
 
 @pytest.mark.parametrize("fn", ["make_render_mesh", "initialize_distributed"])

@@ -338,6 +338,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import splatapult_tpu_torch, splatapult_tpu_torch.cli, splatapult_tpu_torch.convert\n"
         "import splatapult_tpu_torch.io.synth, splatapult_tpu_torch.utils.image\n"
         "import splatapult_tpu_torch.densify, splatapult_tpu_torch.tools.fit_demo\n"
+        "import splatapult_tpu_torch.tools.profile_overlap\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'splatapult_tpu' or m.startswith('splatapult_tpu.'))\n"
