@@ -58,6 +58,13 @@ needs no network. It
    parameters equal to the live ones bit for bit; the checkpoint's size and
    the seconds to write and read it; then B1, B2 and B3 against their plain
    versions and timed at this phase's shape (the resumed scene, one view);
+   then bin_splats and the composite backward cut into their stages at the
+   garden view, exact profile (profile_decomp: the measuring functions of
+   tools/profile_bin.py and tools/profile_bwd.py in this process, three
+   repeats each, counters zeroed just before; every whole within 15 % of
+   the sum of its parts, each timed alone: bin_splats of its ten stages,
+   composite_fwd of its two launches, per_splat_sums of its four stages,
+   the composite forward + backward of the gather, B2, B3 and the tail);
 6. renders the same scene through the rest of the viewer, counters zeroed
    just before each: supersample 2 at 1920x1080 (3840x2160 inside,
    calibrated at that size; render_supersample), the 8-view orbit path
@@ -245,6 +252,9 @@ BAND_LAYOUTS = ("interleaved", "contiguous")
 MESH_STEPS = 3  # mesh_dist: steps of the replicated and the ZeRO fit on each mesh
 OVERLAP_ITERS = 2  # mesh_dist: timed rounds of A, B and C (after two to warm up)
 MESH_WORLD_TIMEOUT_S = 300.0
+# profile_decomp: CUDA-event repeats of each stage (median), and how far a
+# stage sum may fall from its whole
+DECOMP_ITERS, DECOMP_GAP = 3, 0.15
 
 
 T_START = time.perf_counter()
@@ -711,7 +721,7 @@ def main() -> int:
     from splatapult_tpu_torch import train
     from splatapult_tpu_torch.parallel import mesh as PM
     from splatapult_tpu_torch.tools.profile_phases import _profile as profile_device
-    from splatapult_tpu_torch.tools.profile_phases import touched_shares
+    from splatapult_tpu_torch.tools.profile_phases import composite_bounds
 
     # the package re-exports the render() function under the module's name
     R = importlib.import_module("splatapult_tpu_torch.render")
@@ -1175,44 +1185,13 @@ def main() -> int:
                 raise AssertionError(f"per_splat_sums with bf16 columns: {extra}")
             del exact, d_feats
 
-        # Bounds from this run's inputs: each input read once, each output
-        # written once; operations counted on the (slot, pixel) pairs above
-        # the alpha discard in the blocks the walk needs (the early stop's
-        # walked blocks: a pair past it changes no output), counted with the
-        # plain weights' exponent on the decoded rows, plus one test of each
-        # such slot against its tile's rectangle (~25 multiply-adds). Per pair
-        # the forward does ~15 multiply-adds, exp included; the backward that
-        # replay and about 25 more: cdot 3, eff and S 2, dw with its division
-        # 6, dqh and T 2, the nine products 9, and the pixel sums' adds. The
-        # layout changes the bytes (4 x num_feats per slot), not the
-        # operations (the decode is a few integer operations per row).
+        # bounds from this run's inputs (profile_phases.composite_bounds)
         p = grid.tile_pixels
         walked = seg.walked
-        needed_slots = int(walked.sum()) * grid.block
-        touched = touched_shares(inst, tstart, walked, grid)["all_tiles"]
-        pairs_above = touched["row_pixel_pairs_above_discard"]
-        pairs_shape = {"slot_pixel_pairs": needed_slots * p, "pairs_above_discard": pairs_above,
-                       "share_above_discard": pairs_above / max(needed_slots * p, 1),
-                       "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]}
-        row_bytes, val_bytes = inst.element_size() * inst.shape[1], out.element_size()
-        # the tiles whose rows the function must write (a band's own: the
-        # others' rows are written, but nobody reads them)
+        bounds = composite_bounds(inst, tstart, seg, grid, out.element_size())
+        needed_slots, pairs_shape = bounds["walked_slots"], bounds["pairs"]
+        row_bytes = inst.element_size() * inst.shape[1]
         tiles_out = grid.num_tiles // grid.row_stride
-        # (the forward's locals, written and read once between its two
-        # kernels, are the design's traffic, not the function's)
-        c_bytes = row_bytes * needed_slots + 8 * val_bytes * tiles_out * p + 8 * tiles_out
-        c_flop = 2 * 15 * pairs_above + 2 * 25 * needed_slots
-        c_bound_b = c_bytes / HBM_BYTES_PER_S * 1e3
-        c_bound_o = c_flop / FP32_FLOP_PER_S * 1e3
-        # backward bytes: per slot a row read and nine floats written, per
-        # pixel five rows each of the forward's output and its cotangent
-        # read, per pixel and segment a checkpoint of four floats
-        b_bytes = ((row_bytes + 4 * C.NUM_GRAD_COLS) * needed_slots
-                   + 10 * val_bytes * tiles_out * p + 16 * live_segments * p
-                   + 8 * tiles_out)
-        b_flop = 2 * 40 * pairs_above + 2 * 25 * needed_slots
-        b_bound_b = b_bytes / HBM_BYTES_PER_S * 1e3
-        b_bound_o = b_flop / FP32_FLOP_PER_S * 1e3
         shape = {"layout": layout, "row_bytes": row_bytes, "rows_dtype": str(out.dtype),
                  "early_stop_eps": grid.early_stop_eps, "mcap": grid.mcap,
                  "live_slots": live_slots, "walked_slots": needed_slots,
@@ -1228,9 +1207,7 @@ def main() -> int:
              "launches": launches_fwd, "max_abs_err": c_err,
              "ms": c_ms, "ms_by_launch": c_by_launch, "ms_storing_checkpoints": c_ckpt_ms,
              "checkpoints_max_abs_err": ck_err, **c_pass_errs, "plain_ms": c_plain,
-             "bound_ms": max(c_bound_b, c_bound_o),
-             "bound_by": "bytes" if c_bound_b >= c_bound_o else "operations",
-             "library_ms": None,
+             **bounds["composite_fwd"], "library_ms": None,
              "shape": {**shape, "segments": int(C.segment_table(tstart, nblk, grid)[2].sum()),
                        "segment_scratch_bytes": 16 * C.num_segments_cap(grid) * p}})
         rows.append(
@@ -1239,10 +1216,7 @@ def main() -> int:
              "replaces": "splatapult_tpu/ops/composite.py:581",
              "launches": None,  # filled in from this layout's training phase
              "max_abs_err": b_err, "max_abs_err_scale": "each column over its largest magnitude",
-             "ms": b_ms, "plain_ms": b_plain,
-             "bound_ms": max(b_bound_b, b_bound_o),
-             "bound_by": "bytes" if b_bound_b >= b_bound_o else "operations",
-             "library_ms": None,
+             "ms": b_ms, "plain_ms": b_plain, **bounds["composite_bwd"], "library_ms": None,
              "shape": {**shape, "segments": live_segments}})
         return rows, extra
 
@@ -1595,6 +1569,34 @@ def main() -> int:
             row["at_fit_resume_shape"] = {
                 k: at_resume[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "shape")}
+
+    # ---- phase 5d: bin_splats and the backward stage by stage at the garden
+    # view (tools/profile_bin.py, tools/profile_bwd.py), counters zeroed just
+    # before: every stage sum within DECOMP_GAP of its whole
+    from splatapult_tpu_torch.tools import profile_bin, profile_bwd
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    decomp = {"profile_bin": profile_bin.measure(scene, cam, cfg, DECOMP_ITERS),
+              "profile_bwd": profile_bwd.measure(
+                  scene, cam, dataclasses.replace(cfg, forward_only=False), DECOMP_ITERS)}
+    decomp_launches = dict(kernels.LAUNCH_COUNTS)
+    for row in kernel_rows[:3]:  # the exact profile's f32x16 rows
+        row["launches_by_path"]["profile_decomp"] = sum(
+            decomp_launches[c] for c in KERNEL_COUNTERS[row["name"]])
+    wide = [dc for r in decomp.values() for dc in r["decompositions"]
+            if not abs(dc["gap_share"]) <= DECOMP_GAP]
+    emit({"phase": "profile_decomp", "splats": n, "width": FULL_W, "height": FULL_H,
+          "profile": R.profile_name(cfg), "iters": DECOMP_ITERS, **decomp,
+          "launches": decomp_launches, "gap_bound": DECOMP_GAP,
+          "seconds": time.perf_counter() - t0,
+          "device": kind, "nvidia_smi_name_power_limit": smi})
+    if wide:
+        raise AssertionError(f"profile_decomp: stage sums beyond {DECOMP_GAP} of their "
+                             f"wholes: {wide}")
+    if not all(decomp_launches[c] > 0 for c in decomp_launches):
+        raise AssertionError(f"profile_decomp: a kernel was not launched: {decomp_launches}")
+    del decomp
 
     # ---- phase 6: the rest of the viewer on the same scene
     fwd_once = {"expand_fill": 1, "composite_fwd_segments": 1, "composite_fwd_combine": 1,

@@ -40,6 +40,7 @@ sentinels all carry identical (key, splat = N) pairs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 
 import torch
@@ -159,14 +160,27 @@ def sort_key_mode(grid: TileGrid) -> str:
     return "exact32"
 
 
+# sort_key_mode -> depth bits packed beside the tile id (0: the int64 key)
+_PACKED_BITS = {"packed20": 20, "packed16": 16, "exact32": 0}
+_SPILL_BINS = 1024  # _bincount_by_sort: discarded bins the sentinel ids are spread over
+
+
 def _bincount_by_sort(ids: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Exact bincount of int ids in [0, num_bins] -> [num_bins] int32.
 
     Values equal to ``num_bins`` act as an ignored overflow/sentinel bucket.
-    (The name is the JAX function's, which counts by sorting; integer
-    ``torch.bincount`` gives the same exact counts on either device.)
+    (The name is the JAX function's, which counts by sorting.) Integer adds
+    into a fixed-size table: exact in any order, and no host readback —
+    ``torch.bincount`` on a CUDA tensor reads the largest id back to size
+    its output, which stalls the host once a frame. The sentinel ids (every
+    unfilled enumeration slot: hundreds of thousands at full size) are
+    spread over _SPILL_BINS discarded bins, because adds to one address
+    serialise on the card.
     """
-    return torch.bincount(ids, minlength=num_bins + 1)[:num_bins].to(torch.int32)
+    spill = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device) % _SPILL_BINS
+    idx = torch.where(ids < num_bins, ids, num_bins + spill)
+    counts = torch.zeros(num_bins + _SPILL_BINS, dtype=torch.int32, device=ids.device)
+    return counts.index_add_(0, idx, torch.ones_like(idx))[:num_bins]
 
 
 def _tile_rects(mean2d, extent, grid: TileGrid, row_offset=None):
@@ -328,15 +342,15 @@ def _keep_within_capacity(depth_f, cnt_raw, emax: int):
     return torch.where(total_raw > emax, keep_drop, True)
 
 
-def expand_table(mean2d, extent, grid: TileGrid, depth, row_offset=None):
-    """The per-splat table the expand kernel reads -> dict of int32 [N]
-    columns: ``ends`` (inclusive cumsum of the kept counts), ``tile0`` (first
-    covered tile of the rect), ``nx`` (rect width in tiles), ``dbits``
-    (sortable depth bits), plus ``cnt`` (kept count; 0 = culled or dropped by
-    the capacity overflow) and ``cnt_raw`` (count before the drop)."""
-    x0, r0, nx, _, cnt_raw = _tile_rects(mean2d, extent, grid, row_offset=row_offset)
-    depth_f = depth.to(torch.float32)
-    keep = _keep_within_capacity(depth_f, cnt_raw, grid.emax)
+def _table_from_rects(rects, keep, depth_f, grid: TileGrid):
+    """The table's stage: the rects of _tile_rects and the kept mask of
+    _keep_within_capacity -> the per-splat table the expand kernel reads, a
+    dict of int32 [N] columns: ``ends`` (inclusive cumsum of the kept
+    counts), ``tile0`` (first covered tile of the rect), ``nx`` (rect width
+    in tiles), ``dbits`` (sortable depth bits), plus ``cnt`` (kept count; 0 =
+    culled or dropped by the capacity overflow) and ``cnt_raw`` (count
+    before the drop)."""
+    x0, r0, nx, _, cnt_raw = rects
     cnt = torch.where(keep, cnt_raw, 0)
     return {
         "ends": torch.cumsum(cnt, 0, dtype=torch.int32),
@@ -346,6 +360,114 @@ def expand_table(mean2d, extent, grid: TileGrid, depth, row_offset=None):
         "cnt": cnt,
         "cnt_raw": cnt_raw,
     }
+
+
+def expand_table(mean2d, extent, grid: TileGrid, depth, row_offset=None):
+    """The per-splat table the expand kernel reads (see _table_from_rects):
+    the first three stages of bin_splats (_bin_stages) composed, the rects
+    and counts, the overflow drop and the table's cumsums."""
+    rects = _tile_rects(mean2d, extent, grid, row_offset=row_offset)
+    depth_f = depth.to(torch.float32)
+    keep = _keep_within_capacity(depth_f, rects[4], grid.emax)
+    return _table_from_rects(rects, keep, depth_f, grid)
+
+
+def _slot_columns(out3, total, grid: TileGrid, n: int):
+    """The expand kernel's [3, emax] rows -> (tile [emax], splat [emax],
+    valid [emax] bool): slots past the ``total`` filled ones get the sentinel
+    tile num_tiles (it sorts to the end) and the null splat n."""
+    m = torch.arange(grid.emax, dtype=torch.int32, device=out3.device)
+    valid_m = m < total
+    tile = torch.where(valid_m, out3[0], grid.num_tiles)
+    s = torch.where(valid_m, out3[1], n)
+    return tile, s, valid_m
+
+
+def _alignment_pads(tile_count, grid: TileGrid, row_offset=None):
+    """Alignment padding entries, exact per OWNED tile -> [owned tiles * B]
+    int32 tile ids: row t of the [T_owned, B] candidates holds (-count) % B
+    real pads of its tile, the rest the sentinel num_tiles."""
+    dev, i32 = tile_count.device, torch.int32
+    b, num_tiles, stride, tx_n = grid.block, grid.num_tiles, grid.row_stride, grid.tiles_x
+    pad_col = torch.arange(b, dtype=i32, device=dev)[None, :]
+    if stride == 1:
+        pad_t = (-tile_count) % b  # in [0, b)
+        pad_tile_grid = torch.arange(num_tiles, dtype=i32, device=dev)[:, None]
+    else:
+        # owned tile index i -> full-grid tile id (row i//tx * S + d) * tx + col
+        d_off = int(row_offset)
+        cnt_owned = tile_count.reshape(grid.tiles_y // stride, stride, tx_n)[:, d_off, :]
+        cnt_owned = cnt_owned.reshape(-1)
+        pad_t = (-cnt_owned) % b
+        oidx = torch.arange(num_tiles // stride, dtype=i32, device=dev)[:, None]
+        pad_tile_grid = (torch.div(oidx, tx_n, rounding_mode="floor") * stride
+                         + d_off) * tx_n + oidx % tx_n
+    return torch.where(pad_col < pad_t[:, None], pad_tile_grid, num_tiles).reshape(-1)
+
+
+def _instance_keys(tile, s, dep_enum, valid_m, pad_tile, grid: TileGrid, n: int):
+    """The main sort's key -> (key [mcap]: int32 packed or int64 exact, splat
+    id [mcap] of every entry): the REVERSED enumeration, then the pads.
+
+    Sorted stably by the key (_sort_by_key), pads land at each tile's end
+    (maximal depth code), sentinels at the very end. Every tile segment is
+    then exactly ceil(count/b)*b long, so segment starts are b-aligned and
+    the sorted order IS the block-aligned instance buffer.
+    STRICT < gates (sort_key_mode): the sentinel/pad key is
+    (num_tiles << bits) | mask, which must stay <= INT32_MAX — at exactly
+    2048 tiles the 20-bit sentinel would wrap the int32 sign bit and sort
+    BEFORE every real instance.
+    packed20: (tile << 20 | top-20 f32 depth bits): real depth codes are
+    <= 0x7F800000 >> 11 = 0xFF000 < 0xFFFFF, so the pad/sentinel code sorts
+    strictly after every real instance. packed16: (tile << 16 | bf16 depth).
+    exact32: (tile << 32 | f32 depth bits) in int64.
+    """
+    pad_cap = pad_tile.shape[0]
+    packed_bits = _PACKED_BITS[sort_key_mode(grid)]
+    s_all = torch.cat([s.flip(0), torch.full((pad_cap,), n, dtype=torch.int32,
+                                             device=s.device)])
+    if packed_bits:
+        # 16: bits [31:16] of the f32; 20: bits [30:11] (sign bit is always 0)
+        shift = 16 if packed_bits == 16 else 11
+        sentd = (1 << packed_bits) - 1
+        key = (tile << packed_bits) | torch.where(
+            valid_m, (dep_enum >> shift) & sentd, sentd)
+        return torch.cat([key.flip(0), (pad_tile << packed_bits) | sentd]), s_all
+    imax = 2**31 - 1
+    key = (tile.to(torch.int64) << 32) | torch.where(valid_m, dep_enum, imax)
+    return torch.cat([key.flip(0), (pad_tile.to(torch.int64) << 32) | imax]), s_all
+
+
+def _sort_by_key(key_all, s_all, grid: TileGrid):
+    """The main sort: ONE stable sort by the (tile, depth) key of
+    _instance_keys -> (tile id of every sorted slot [mcap] int32,
+    inst_splat [mcap])."""
+    key_sorted, perm = torch.sort(key_all, stable=True)
+    packed_bits = _PACKED_BITS[sort_key_mode(grid)]
+    if packed_bits:
+        tile_sorted = key_sorted >> packed_bits
+    else:
+        tile_sorted = (key_sorted >> 32).to(torch.int32)
+    return tile_sorted, s_all[perm]
+
+
+def _block_metadata(tile_sorted, grid: TileGrid):
+    """Block metadata as strided slices of the sorted tile ids -> (block_tile,
+    block_first, block_live), each [NB] int32."""
+    i32, b, nb, num_tiles = torch.int32, grid.block, grid.num_blocks, grid.num_tiles
+    bt = tile_sorted[::b]  # [NB] tile of each block's first row
+    prev = torch.cat([torch.full((1,), -1, dtype=i32, device=tile_sorted.device),
+                      tile_sorted[b - 1::b][:-1]])
+    block_live_mask = bt < num_tiles
+    block_first = (block_live_mask & (bt != prev)).to(i32)
+    block_live = block_live_mask.to(i32)
+    # dead blocks (the sentinel suffix) name the tile of the LAST live block,
+    # as the reference's work-list does. bt is nondecreasing, so the last
+    # live block is just before the first sentinel block.
+    idx_last = torch.clamp(block_live.sum() - 1, 0, nb - 1)
+    last_tile = torch.clamp_max(torch.take(bt, idx_last), num_tiles - 1)
+    block_tile = torch.where(block_live_mask, bt, last_tile).to(i32)
+    return block_tile, block_first, block_live
 
 
 def bin_splats(mean2d, extent, grid: TileGrid, depth, row_offset=None):
@@ -374,119 +496,77 @@ def bin_splats(mean2d, extent, grid: TileGrid, depth, row_offset=None):
     With grid.row_stride = S > 1, ``row_offset`` (a Python int) selects the
     owned tile rows r % S == row_offset; tile ids stay FULL-grid and only
     owned tiles get alignment padding.
+
+    The body is _bin_stages: its stages in order, each a function of its
+    own, so that tools/profile_bin.py times the code that ships.
     """
-    dev = mean2d.device
+    return _bin_stages(mean2d, extent, grid, depth, row_offset)
+
+
+def run_stage(record, name: str, fn, *args):
+    """One stage of a staged function (_bin_stages, composite's
+    per_splat_sums) -> fn(*args); with a ``record`` list, (name, fn, args,
+    result) is also appended to it, so that a profiler can time the stage
+    alone on the very inputs it got and check it against what it gave."""
+    out = fn(*args)
+    if record is not None:
+        record.append((name, fn, args, out))
+    return out
+
+
+def _bin_stages(mean2d, extent, grid: TileGrid, depth, row_offset=None, record=None):
+    """bin_splats' body (see there), its stages run in order through
+    run_stage: the rects and counts (_tile_rects), the overflow drop
+    (_keep_within_capacity), the table's cumsums (_table_from_rects), the
+    expand kernel (expand_fill), the slot columns, the tile histogram
+    (_bincount_by_sort), the alignment pads, the sort key (_instance_keys),
+    the main sort (_sort_by_key), the block metadata. With a ``record``
+    list, every stage is appended to it as run_stage says."""
     n = mean2d.shape[0]
     if n == 0:
         raise ValueError("bin_splats needs at least one splat")
-    tx_n, ty_n = grid.tiles_x, grid.tiles_y
-    num_tiles, b, emax, mcap = grid.num_tiles, grid.block, grid.emax, grid.mcap
     stride = grid.row_stride
-    row_step = tx_n * stride  # tile-id step between a rect's owned rows
-    owned_tiles = num_tiles // stride
-    pad_cap = owned_tiles * b
-    if mcap != emax + pad_cap:
-        raise ValueError(f"inconsistent grid: mcap={mcap} emax={emax} pad={pad_cap}")
+    pad_cap = (grid.num_tiles // stride) * grid.block
+    if grid.mcap != grid.emax + pad_cap:
+        raise ValueError(f"inconsistent grid: mcap={grid.mcap} emax={grid.emax} pad={pad_cap}")
     if stride > 1 and row_offset is None:
         raise ValueError("row_stride > 1 needs a row_offset")
-    d_off = int(row_offset) if row_offset is not None else 0
-    i32 = torch.int32
-
-    table = expand_table(mean2d, extent, grid, depth, row_offset=row_offset)
-    ends, cnt = table["ends"], table["cnt"]
-    offs = ends - cnt  # exclusive
-    total = ends[-1]
-    overflow = table["cnt_raw"].sum(dtype=i32) - total
-
-    # ---- enumeration slots -> (splat, tile-within-rect): the expand kernel
-    out3 = expand_fill(ends, table["tile0"], table["nx"], table["dbits"],
-                       emax, row_step)
-    m = torch.arange(emax, dtype=i32, device=dev)
-    valid_m = m < total
-    tile = torch.where(valid_m, out3[0], num_tiles)  # sentinel sorts to the end
-    s = torch.where(valid_m, out3[1], n)
-    dep_enum = out3[2]
-
-    # exact per-tile counts (truncation-aware) -> exact alignment padding
-    tile_count = _bincount_by_sort(tile, num_tiles)
-
-    # ---- alignment padding entries, exact per OWNED tile ----
-    # [T_owned, b] candidates; column < pad_t are real pads of that tile
-    pad_col = torch.arange(b, dtype=i32, device=dev)[None, :]
-    if stride == 1:
-        pad_t = (-tile_count) % b  # in [0, b)
-        pad_tile_grid = torch.arange(num_tiles, dtype=i32, device=dev)[:, None]
-    else:
-        # owned tile index i -> full-grid tile id (row i//tx * S + d) * tx + col
-        cnt_owned = tile_count.reshape(ty_n // stride, stride, tx_n)[:, d_off, :].reshape(-1)
-        pad_t = (-cnt_owned) % b
-        oidx = torch.arange(owned_tiles, dtype=i32, device=dev)[:, None]
-        pad_tile_grid = (torch.div(oidx, tx_n, rounding_mode="floor") * stride
-                         + d_off) * tx_n + oidx % tx_n
-    pad_tile = torch.where(pad_col < pad_t[:, None], pad_tile_grid, num_tiles).reshape(-1)
-
-    # ---- ONE stable sort by the packed (tile, depth) key over the reversed
-    # enumeration + pads: pads land at each tile's end (maximal depth code),
-    # sentinels at the very end. Every tile segment is then exactly
-    # ceil(count/b)*b long, so segment starts are b-aligned and the sorted
-    # order IS the block-aligned instance buffer.
-    # STRICT < gates (sort_key_mode): the sentinel/pad key is
-    # (num_tiles << bits) | mask, which must stay <= INT32_MAX — at exactly
-    # 2048 tiles the 20-bit sentinel would wrap the int32 sign bit and sort
-    # BEFORE every real instance.
-    # packed20: (tile << 20 | top-20 f32 depth bits): real depth codes are
-    # <= 0x7F800000 >> 11 = 0xFF000 < 0xFFFFF, so the pad/sentinel code sorts
-    # strictly after every real instance. packed16: (tile << 16 | bf16 depth).
-    mode = sort_key_mode(grid)
-    packed_bits = {"packed20": 20, "packed16": 16, "exact32": 0}[mode]
-    if grid.depth_bits != 32 and packed_bits == 0:
+    if grid.depth_bits != 32 and sort_key_mode(grid) == "exact32":
         _log.warning(
             "depth_bits=%d requested but num_tiles=%d exceeds the "
             "packed-key budget (%s); using the exact sort key",
-            grid.depth_bits, num_tiles,
+            grid.depth_bits, grid.num_tiles,
             "< 2048" if grid.depth_bits == 20 else "< 32768")
-    s_all = torch.cat([s.flip(0), torch.full((pad_cap,), n, dtype=i32, device=dev)])
-    if packed_bits:
-        # 16: bits [31:16] of the f32; 20: bits [30:11] (sign bit is always 0)
-        shift = 16 if packed_bits == 16 else 11
-        sentd = (1 << packed_bits) - 1
-        key = (tile << packed_bits) | torch.where(
-            valid_m, (dep_enum >> shift) & sentd, sentd)
-        key_all = torch.cat([key.flip(0), (pad_tile << packed_bits) | sentd])
-        key_sorted, perm = torch.sort(key_all, stable=True)
-        tile_sorted = key_sorted >> packed_bits
-    else:
-        imax = 2**31 - 1
-        key = (tile.to(torch.int64) << 32) | torch.where(valid_m, dep_enum, imax)
-        key_all = torch.cat([key.flip(0), (pad_tile.to(torch.int64) << 32) | imax])
-        key_sorted, perm = torch.sort(key_all, stable=True)
-        tile_sorted = (key_sorted >> 32).to(i32)
-    inst_splat = s_all[perm]
 
-    # ---- block metadata: strided slices of the sorted tile ids ----
-    nb = grid.num_blocks
-    bt = tile_sorted[::b]  # [NB] tile of each block's first row
-    prev = torch.cat([torch.full((1,), -1, dtype=i32, device=dev),
-                      tile_sorted[b - 1::b][:-1]])
-    block_live_mask = bt < num_tiles
-    block_first = (block_live_mask & (bt != prev)).to(i32)
-    block_live = block_live_mask.to(i32)
-    # dead blocks (the sentinel suffix) name the tile of the LAST live block,
-    # as the reference's work-list does. bt is nondecreasing, so the last
-    # live block is just before the first sentinel block.
-    idx_last = torch.clamp(block_live.sum() - 1, 0, nb - 1)
-    last_tile = torch.clamp_max(torch.take(bt, idx_last), num_tiles - 1)
-    block_tile = torch.where(block_live_mask, bt, last_tile).to(i32)
-
+    stage = functools.partial(run_stage, record)
+    rects = stage("rects+counts", _tile_rects, mean2d, extent, grid, row_offset)
+    depth_f = depth.to(torch.float32)
+    keep = stage("overflow drop", _keep_within_capacity, depth_f, rects[4], grid.emax)
+    table = stage("table cumsums", _table_from_rects, rects, keep, depth_f, grid)
+    ends, cnt = table["ends"], table["cnt"]
+    total = ends[-1]
+    # ---- enumeration slots -> (splat, tile-within-rect): the expand kernel
+    out3 = stage("expand fill (B1)", expand_fill, ends, table["tile0"], table["nx"],
+                 table["dbits"], grid.emax,
+                 grid.tiles_x * stride)  # tile-id step between owned rows
+    tile, s, valid_m = stage("slot columns", _slot_columns, out3, total, grid, n)
+    # exact per-tile counts (truncation-aware) -> exact alignment padding
+    tile_count = stage("tile histogram", _bincount_by_sort, tile, grid.num_tiles)
+    pad_tile = stage("alignment pads", _alignment_pads, tile_count, grid, row_offset)
+    key_all, s_all = stage("sort key", _instance_keys, tile, s, out3[2], valid_m, pad_tile,
+                           grid, n)
+    tile_sorted, inst_splat = stage("main sort", _sort_by_key, key_all, s_all, grid)
+    block_tile, block_first, block_live = stage("block metadata", _block_metadata,
+                                                tile_sorted, grid)
     return {
         "inst_splat": inst_splat,
         "block_meta": (block_tile << 2) | (block_first << 1) | block_live,
-        "seg_offs": offs,
+        "seg_offs": ends - cnt,  # exclusive
         "seg_cnt": cnt,
         "block_tile": block_tile,
         "block_first": block_first,
         "block_live": block_live,
         "tile_ok": tile_count > 0,
         "tile_count": tile_count,
-        "num_culled_instances": overflow,
+        "num_culled_instances": table["cnt_raw"].sum(dtype=torch.int32) - total,
     }

@@ -51,6 +51,7 @@ kernel walks each segment in a CTA of its own, started from its checkpoint.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -58,7 +59,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from splatapult_tpu_torch import kernels
-from splatapult_tpu_torch.ops.binning import TileGrid
+from splatapult_tpu_torch.ops.binning import TileGrid, run_stage
 
 NUM_FEATS = 16
 # packed_colors: the geometry's six f32 bit patterns and RGB as 16-bit fixed
@@ -830,33 +831,69 @@ def per_splat_sums(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid):
     _unpack_bf16_pairs, which pack pairs of bf16 columns into one int32
     payload of its sort; here only the keys are sorted, so there is no
     payload to pack.
+
+    The body is _tail_stages: its four stages in order, each a function of
+    its own, so that tools/profile_bwd.py times the code that ships.
     """
-    n = seg_offs.shape[0]
-    # torch.sort takes one key: sort the ids, carry the columns by gathering
-    # at the permutation
-    perm = torch.sort(inst_splat, stable=True)[1]
+    return _tail_stages(d_inst, inst_splat, seg_offs, seg_cnt, grid)
+
+
+def _tail_stages(d_inst, inst_splat, seg_offs, seg_cnt, grid: TileGrid, record=None):
+    """per_splat_sums' body, its stages run in order through run_stage: the
+    id sort (_tail_order), the columns gathered at the permutation
+    (_tail_columns), the two-level float64 prefix sum (_tail_prefix), the
+    read at the segment ends and the difference (_tail_segment_sums). With a
+    ``record`` list, every stage is appended to it as run_stage says."""
+    stage = functools.partial(run_stage, record)
+    perm = stage("tail/id sort", _tail_order, inst_splat)
+    cols = stage("tail/column gather", _tail_columns, d_inst, perm, grid)
+    local, carry = stage("tail/two-level prefix sum", _tail_prefix, cols)
+    return stage("tail/segment ends + difference", _tail_segment_sums, local, carry,
+                 seg_offs, seg_cnt, grid, d_inst.dtype)
+
+
+def _tail_order(inst_splat):
+    """The tail's id sort -> the permutation [mcap] int64 that groups each
+    splat's instances (torch.sort takes one key: the columns are carried by
+    gathering at the permutation, _tail_columns)."""
+    return torch.sort(inst_splat, stable=True)[1]
+
+
+def _tail_columns(d_inst, perm, grid: TileGrid):
+    """The gradient columns at the permutation's first emax slots -> [9, emax]
+    float64, splat-grouped; with grad_sort_dtype="bfloat16" each value is
+    rounded to bf16 first and the gather moves 2-byte columns."""
     if grid.grad_sort_dtype == "bfloat16":
-        cols = d_inst.to(torch.bfloat16)[:, perm[: grid.emax]].double()
-    else:
-        cols = d_inst[:, perm[: grid.emax]].double()  # [9, emax], splat-grouped
+        return d_inst.to(torch.bfloat16)[:, perm[: grid.emax]].double()
+    return d_inst[:, perm[: grid.emax]].double()
+
+
+def _tail_prefix(cols):
+    """Inclusive prefix sum along the slots of cols [9, emax] in two levels ->
+    (local [9, emax / block, block]: the prefix within blocks of
+    _PREFIX_BLOCK slots, carry [9, emax / block]: the exclusive prefix of the
+    block totals). torch.cumsum over nine rows of millions of slots keeps
+    nine thread blocks busy (4 ms for [9, 2.6M] on an H100, 80 % of the
+    tail); as [9 * emax / block, block] it fills the card. emax is a multiple
+    of 4096 by construction (TileGrid.create)."""
+    local = torch.cumsum(cols.reshape(NUM_GRAD_COLS, -1, _PREFIX_BLOCK), dim=2)
+    totals = local[:, :, -1]
+    return local, torch.cumsum(totals, dim=1) - totals
+
+
+def _tail_segment_sums(local, carry, seg_offs, seg_cnt, grid: TileGrid, dtype):
+    """The prefix of _tail_prefix read at every splat's segment end, and the
+    first difference -> d_feats [N + 1, 16] in ``dtype`` (the null row and
+    columns 9.. zero; a splat with no instance exactly zero)."""
+    n = seg_offs.shape[0]
     end = torch.clamp_max(seg_offs + seg_cnt, grid.emax)
     at = torch.clamp(end - 1, 0, grid.emax - 1).long()
-    # Inclusive prefix sum along the slots, read only at the segment ends, in
-    # two levels: within blocks of _PREFIX_BLOCK slots, plus the exclusive
-    # prefix of the block totals. torch.cumsum over nine rows of millions of
-    # slots keeps nine thread blocks busy (4 ms for [9, 2.6M] on an H100, 80 %
-    # of this function); as [9 * emax / block, block] it fills the card.
-    # emax is a multiple of 4096 by construction (TileGrid.create).
-    blocks = cols.reshape(NUM_GRAD_COLS, -1, _PREFIX_BLOCK)
-    local = torch.cumsum(blocks, dim=2)
-    totals = local[:, :, -1]
-    carry = torch.cumsum(totals, dim=1) - totals  # [9, emax / block]
     prefix_at = (local.reshape(NUM_GRAD_COLS, -1)[:, at]
                  + carry[:, torch.div(at, _PREFIX_BLOCK, rounding_mode="floor")])
     g = torch.where((end > 0)[None, :], prefix_at, 0.0)  # [9, N] prefix at segment ends
-    d_feats = torch.zeros((n + 1, NUM_FEATS), dtype=d_inst.dtype, device=d_inst.device)
+    d_feats = torch.zeros((n + 1, NUM_FEATS), dtype=dtype, device=local.device)
     d_feats[:n, :NUM_GRAD_COLS] = torch.diff(
-        g, dim=1, prepend=g.new_zeros((NUM_GRAD_COLS, 1))).t().to(d_inst.dtype)
+        g, dim=1, prepend=g.new_zeros((NUM_GRAD_COLS, 1))).t().to(dtype)
     return d_feats
 
 

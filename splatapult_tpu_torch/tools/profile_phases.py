@@ -196,6 +196,63 @@ def touched_shares(inst, start, nblk, grid) -> dict:
     return {"all_tiles": shares(counts), "deepest_32_tiles": shares(counts[deepest])}
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+
+
+def composite_bounds(inst, start, seg, grid, val_bytes: int) -> dict:
+    """The least time the card could take for B2 (composite_fwd) and B3
+    (composite_bwd) on these inputs -> {"walked_slots", "live_segments",
+    "pairs": the (slot, pixel) pair counts, "composite_fwd" and
+    "composite_bwd": {"bound_ms", "bound_by"}}. ``seg`` is the forward's
+    Segments (its walked blocks), ``val_bytes`` the bytes of one value of
+    its output rows.
+
+    Each input is read once, each output written once; operations are
+    counted on the (slot, pixel) pairs above the alpha discard in the blocks
+    the walk needs (the early stop's walked blocks: a pair past it changes
+    no output), counted with the plain weights' exponent on the decoded
+    rows (touched_shares), plus one test of each such slot against its
+    tile's rectangle (~25 multiply-adds). Per pair the forward does ~15
+    multiply-adds, exp included; the backward that replay and about 25
+    more: cdot 3, eff and S 2, dw with its division 6, dqh and T 2, the
+    nine products 9, and the pixel sums' adds. The layout changes the bytes
+    (4 x num_feats per slot), not the operations (the decode is a few
+    integer operations per row)."""
+    from splatapult_tpu_torch.ops import composite as C
+
+    p = grid.tile_pixels
+    needed_slots = int(seg.walked.sum()) * grid.block
+    live_segments = int(C.segment_table(start, seg.walked, grid)[2].sum())
+    touched = touched_shares(inst, start, seg.walked, grid)["all_tiles"]
+    pairs_above = touched["row_pixel_pairs_above_discard"]
+    row_bytes = inst.element_size() * inst.shape[1]
+    # the tiles whose rows the function must write (a band's own: the
+    # others' rows are written, but nobody reads them)
+    tiles_out = grid.num_tiles // grid.row_stride
+    # (the forward's locals, written and read once between its two
+    # kernels, are the design's traffic, not the function's)
+    c_bytes = row_bytes * needed_slots + 8 * val_bytes * tiles_out * p + 8 * tiles_out
+    c_flop = 2 * 15 * pairs_above + 2 * 25 * needed_slots
+    # backward bytes: per slot a row read and nine floats written, per pixel
+    # five rows each of the forward's output and its cotangent read, per
+    # pixel and segment a checkpoint of four floats
+    b_bytes = ((row_bytes + 4 * C.NUM_GRAD_COLS) * needed_slots
+               + 10 * val_bytes * tiles_out * p + 16 * live_segments * p + 8 * tiles_out)
+    b_flop = 2 * 40 * pairs_above + 2 * 25 * needed_slots
+
+    def bound(nbytes, flop):
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+        return {"bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+    return {"walked_slots": needed_slots, "live_segments": live_segments,
+            "pairs": {"slot_pixel_pairs": needed_slots * p, "pairs_above_discard": pairs_above,
+                      "share_above_discard": pairs_above / max(needed_slots * p, 1),
+                      "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]},
+            "composite_fwd": bound(c_bytes, c_flop), "composite_bwd": bound(b_bytes, b_flop)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
