@@ -128,7 +128,26 @@ needs no network. It
    8-bit step of the per-eye PNG), render --supersample 2, render of a 2000-splat scene
    with the default --pipeline auto (global), points, export --prune, info,
    save-pose (and the floor it saves in the next render), and fit and fit
-   --adaptive against the cameras.json with a <ply>_vr.json present.
+   --adaptive against the cameras.json with a <ply>_vr.json present;
+10. times the ablation microbenchmarks (phase microbench:
+   splatapult_tpu_torch/tools/microbench_kernel.py and microbench_bwdk.py,
+   every variant of both, at the JAX tools' defaults: the ball of
+   bench.make_scene, 1M splats at 1920x1080, capacity 2 per splat, the
+   backward's early stop 1e-4), counters zeroed just before, every ablation
+   kernel launched, a tile deeper than 8 blocks (so sub2 and sub4 stage
+   their segments in more than one piece), sub2 and sub4 within the
+   composite tolerance of the shipped rows; then, on the same inputs, holds
+   every variant's kernel against its plain version: full bit for bit
+   against the shipped B2 and B3, the others to the composite tolerances
+   (noexp's relative to its values where they exceed 1: its weights are
+   <= 0, so T grows);
+   the B3 variants noscan and tri_bf16 start from the checkpoints of their
+   own forwards (held against the plain forward's, as the shipped
+   forward's), and their plain versions from the same checkpoints; where
+   the early stop ends chains of scan_bf16, each stopped chain's rows
+   against the same kernels' walk of the blocks it walked, every pixel
+   below the stop there and not one block earlier. Each ablation row of
+   the kernels line gives the bound of the variant's own function.
 
 Each phase prints one JSON line; any failure raises and the exit code is not 0.
 The last line is {"ok": true, "device": {...}}.
@@ -255,6 +274,14 @@ MESH_WORLD_TIMEOUT_S = 300.0
 # profile_decomp: CUDA-event repeats of each stage (median), and how far a
 # stage sum may fall from its whole
 DECOMP_ITERS, DECOMP_GAP = 3, 0.15
+# microbench: the JAX ablation tools' defaults (ball 1M at 1080p, capacity 2
+# per splat, 5 timed repeats, the backward's early stop), at which every
+# variant is also held against its plain version
+MICRO_SPLATS, MICRO_INSTANCE_MULT, MICRO_ITERS, MICRO_EARLY_STOP = 1_000_000, 2.0, 5, 1e-4
+# how near the discard threshold a row's exponent must lie for a flip of
+# that row between the kernel's and the plain version's float32 orders to
+# explain a noexp pixel beyond the tolerance (noexp_close)
+NOEXP_FLIP_GAP = 1e-4
 
 
 T_START = time.perf_counter()
@@ -325,6 +352,42 @@ def grad_cols_close(got, want, what: str) -> float:
         raise AssertionError(
             f"{what}: max scaled err {max_err:.3e}, fraction over 2e-4 = {frac:.3e}")
     return max_err
+
+
+def noexp_close(got, want, inst, start, nblk, grid, what: str) -> dict:
+    """microbench_kernel's noexp against its plain version -> the check's
+    numbers. noexp's weight jumps from 0 to 0.01 ln(1/256) = -0.055 where a
+    row's exponent crosses the discard (14 times the shipped weight's jump of
+    1/256), and with weights <= 0, T grows past 1 behind it. So a row whose
+    exponent lies within float32 rounding of the threshold, kept by one side
+    and discarded by the other, moves its pixel by several per cent. Values
+    are held to the composite tolerance relative to their magnitude where
+    that exceeds 1, and every pixel beyond it must hold such a row: one of
+    its tile's rows with an exponent within NOEXP_FLIP_GAP of the threshold."""
+    from splatapult_tpu_torch.ops import composite as C
+    from splatapult_tpu_torch.tools import microbench_kernel as MK
+
+    mag = want.abs().clamp_min(1.0)
+    rel = (got - want).abs() / mag
+    frac = float((rel > 1e-4).float().mean())
+    if frac > 1e-4:
+        raise AssertionError(f"{what}: fraction over 1e-4 relative = {frac:.3e}")
+    bad_t, bad_p = (rel > 5e-3).any(dim=1).nonzero(as_tuple=True)
+    rows = C._decoded_rows(inst, grid)
+    px, py = C._pixel_coords(grid, inst.device)
+    cut, gaps = math.log(grid.alpha_cutoff), []
+    for t, q in zip(bad_t.tolist(), bad_p.tolist()):
+        b0, nb = int(start[t]), int(nblk[t])
+        f = rows[b0 * grid.block:(b0 + nb) * grid.block][None]
+        qh = MK._exponents(f, px[t:t + 1, q:q + 1], py[t:t + 1, q:q + 1])
+        gaps.append(float((qh - cut).abs().min()))
+    if any(g > NOEXP_FLIP_GAP for g in gaps):
+        raise AssertionError(f"{what}: {len(gaps)} pixels beyond the tolerance, the nearest "
+                             f"exponents to the discard {gaps}")
+    return {"max_abs_err": float((got - want).abs().max()), "max_rel_err": float(rel.max()),
+            "max_abs_value": float(want.abs().max()), "fraction_over_1e-4": frac,
+            "pixels_beyond_the_tolerance": len(gaps),
+            "their_nearest_exponent_to_the_discard": gaps}
 
 
 def checkpoints_close(seg, ref_seg, reached, what: str, bf16: bool = False):
@@ -2465,6 +2528,189 @@ def main() -> int:
           "device": kind, "nvidia_smi_name_power_limit": smi})
     del small, small_cpu
 
+    def fwd_checkpoints_check(inst, start, nblk, grid, variant, held):
+        """A B2 variant's forward storing checkpoints at the grid's early stop
+        against its plain version, each check run through ``held`` -> (rows,
+        Segments, the check's numbers)."""
+        from splatapult_tpu_torch.tools import microbench_kernel as MK
+
+        rows, seg = MK.composite_fwd_variant(inst, start, nblk, grid, variant, checkpoints=True)
+        ref_rows, ref_seg = MK.composite_fwd_variant_plain(inst, start, nblk, grid, variant,
+                                                           checkpoints=True)
+        what = f"microbench_kernel[{variant}] storing checkpoints"
+        check = {"max_abs_err": held(composite_close, rows, ref_rows, what),
+                 "checkpoints": held(checkpoints_close, seg, ref_seg,
+                                     segments_reached(start, seg, grid), what),
+                 "walked_blocks": int(seg.walked.sum()),
+                 "tiles_stopped_early": int((seg.walked < nblk).sum())}
+        return rows, seg, check
+
+    def microbench_phase():
+        """Phase microbench -> (its JSON, the ablation kernels' rows of the
+        kernels line), every number at the JAX tools' defaults."""
+        from splatapult_tpu_torch.tools import microbench_bwdk as MB, microbench_kernel as MK
+        from splatapult_tpu_torch.tools.scenes import bench_camera, make_bench_scene
+
+        t_phase = time.perf_counter()
+        ball_cam = bench_camera("ball", FULL_W, FULL_H)
+        fwd_cfg = R.RenderConfig(width=FULL_W, height=FULL_H, pipeline="tiled",
+                                 max_instance_mult=MICRO_INSTANCE_MULT)
+        ball = make_bench_scene("ball", MICRO_SPLATS, seed=0)
+        grid, bins, inst, start, nblk = MK.build_inputs(ball, ball_cam, fwd_cfg)
+        del ball
+        if int(bins["num_culled_instances"]) != 0:
+            raise AssertionError(f"microbench: {int(bins['num_culled_instances'])} culled")
+        es_grid = dataclasses.replace(grid, early_stop_eps=MICRO_EARLY_STOP)
+        kernels.reset_launch_counts()
+        timed = {"microbench_kernel": MK.measure_inputs(grid, bins, inst, start, nblk,
+                                                        MICRO_ITERS, MK.VARIANTS),
+                 "microbench_bwdk": MB.measure_inputs(es_grid, bins, inst, start, nblk,
+                                                      MICRO_ITERS, MB.VARIANTS)}
+        launches = dict(kernels.ABLATION_LAUNCH_COUNTS)
+        timing_s = time.perf_counter() - t_phase
+        shipped_launches = {k: kernels.LAUNCH_COUNTS[k] for k in (
+            "composite_fwd_segments", "composite_fwd_combine", "composite_bwd")}
+        if not all(n > 0 for n in (*launches.values(), *shipped_launches.values())):
+            raise AssertionError(f"microbench: a kernel was not launched: {launches}, "
+                                 f"{shipped_launches}")
+        # sub2 and sub4 stage a segment in pieces of 8 blocks, reusing the
+        # mbarriers by parity: a tile deeper than 8 blocks runs a second piece
+        deep = {"deepest_tile_blocks": int(nblk.max()),
+                "tiles_deeper_than_8_blocks": int((nblk > C.SEGMENT_BLOCKS).sum())}
+        if deep["deepest_tile_blocks"] <= C.SEGMENT_BLOCKS:
+            raise AssertionError(f"microbench: no tile stages a second piece: {deep}")
+
+        # the variants' early stop, where it ends chains of scan_bf16
+        # (noscan's T falls only at a block's last row: no chain stops): the
+        # combine walks the stopping segment again with the variant's blend.
+        # A stopped chain's rows must be the same kernels' walk of the blocks
+        # it walked, every pixel below the stop there and not every pixel one
+        # block earlier (the first block the vote ends)
+        t_early = time.perf_counter()
+        checks = {}
+        free = dataclasses.replace(es_grid, early_stop_eps=0.0)
+        for f in ("noscan", "scan_bf16"):
+            rows_f, seg_f = MK.composite_fwd_variant(inst, start, nblk, es_grid, f,
+                                                     checkpoints=True)
+            stopped = seg_f.walked < nblk
+            cut = MK.composite_fwd_variant(inst, start, seg_f.walked, free, f)
+            before = MK.composite_fwd_variant(
+                inst, start, torch.where(stopped, seg_f.walked - 1, seg_f.walked), free, f)
+            what = f"microbench_kernel[{f}] early stop"
+            checks[f"fwd[{f}] early stop"] = {
+                "rows_against_the_walked_blocks_max_abs_err": composite_close(rows_f, cut, what),
+                "walked_blocks": int(seg_f.walked.sum()),
+                "tiles_stopped_early": int(stopped.sum())}
+            if not (bool((rows_f[stopped, 4].amax(dim=1) < MICRO_EARLY_STOP).all())
+                    and bool((before[stopped, 4].amax(dim=1) >= MICRO_EARLY_STOP).all())):
+                raise AssertionError(f"{what}: a chain stopped at the wrong block")
+            if f == "scan_bf16" and not bool(stopped.any()):
+                raise AssertionError(f"{what}: no chain stopped early")
+            del rows_f, seg_f, cut, before
+        early_s = time.perf_counter() - t_early
+
+        # every variant's kernel against its plain version on the same inputs;
+        # a miss is kept and the phase fails after the last check (its line
+        # printed first), so one run shows every variant's
+        failures = []
+
+        def held(check, *args):
+            try:
+                return check(*args)
+            except AssertionError as e:
+                failures.append(str(e))
+                return {"failed": str(e)}
+
+        t_checks = time.perf_counter()
+        shipped = C.composite_fwd(inst, start, nblk, grid)
+        plain_rows = {}
+        for v in MK.VARIANTS:
+            got = MK.composite_fwd_variant(inst, start, nblk, grid, v)
+            torch.cuda.synchronize()
+            if v == "full" and not torch.equal(got, shipped):
+                raise AssertionError("microbench: full's rows differ from the shipped B2's")
+            ref_of = "full" if v in MK.SHIPPED_ARITHMETIC else v
+            if ref_of not in plain_rows:
+                plain_rows[ref_of] = event_ms_once(lambda: MK.composite_fwd_variant_plain(
+                    inst, start, nblk, grid, ref_of))
+            plain_ms, want = plain_rows[ref_of]
+            what = f"microbench_kernel[{v}]"
+            if v == "noexp":
+                checks[f"fwd[{v}]"] = {**held(noexp_close, got, want, inst, start, nblk, grid,
+                                              what), "plain_ms": plain_ms}
+                continue
+            checks[f"fwd[{v}]"] = {"max_abs_err": held(composite_close, got, want, what),
+                                   "plain_ms": plain_ms}
+        del plain_rows, got, want
+        out, seg = C.composite_fwd(inst, start, nblk, es_grid, checkpoints=True)
+        dout = seeded_cotangent(out)
+        segs = {"full": seg}
+        for f in ("noscan", "scan_bf16"):  # the forwards B3's noscan and tri_bf16 start from
+            rows_f, segs[f], checks[f"fwd[{f}] storing checkpoints"] = fwd_checkpoints_check(
+                inst, start, nblk, es_grid, f, held)
+            del rows_f
+        shipped_d = C.composite_bwd(inst, start, nblk, out, dout, es_grid, seg)
+        for v in MB.VARIANTS:
+            fseg = segs[MB.forward_of(v)]
+            got = MB.composite_bwd_variant(inst, start, nblk, out, dout, es_grid, v, fseg)
+            torch.cuda.synchronize()
+            kernel = MB.kernel_of(v)
+            if kernel == "full" and not torch.equal(got, shipped_d):
+                raise AssertionError(f"microbench: {v}'s columns differ from the shipped B3's")
+            if kernel != v:  # the vpu variants: full's launch, held above bit for bit
+                continue
+            plain_ms, want = event_ms_once(lambda: MB.composite_bwd_variant_plain(
+                inst, start, nblk, out, dout, es_grid, v, segments=fseg))
+            checks[f"bwd[{v}]"] = {
+                "max_abs_err": held(grad_cols_close, got, want, f"microbench_bwdk[{v}]"),
+                "plain_ms": plain_ms}
+            del want
+        del inst, out, dout, segs, seg, shipped, shipped_d, got
+        torch.cuda.synchronize()
+        checks_s = time.perf_counter() - t_checks
+
+        # the kernels line: one row per ablation kernel, each bound that of
+        # the variant's own function (the tools' variant_bound)
+        rows = []
+        fwd_t, bwd_t = timed["microbench_kernel"], timed["microbench_bwdk"]
+        shape = (f"ball {MICRO_SPLATS} splats, {FULL_W}x{FULL_H} (the JAX tools' defaults); ms "
+                 f"the median of {MICRO_ITERS} held events, plain_ms one call")
+        for v in MK.VARIANTS:
+            r = fwd_t["variants"][v]
+            rows.append({
+                "name": f"microbench_kernel[{v}]", "route": "cuda",
+                "source": "splatapult_tpu_torch/kernels/csrc/composite_fwd_ablate.cu",
+                "replaces": ("tools/microbench_kernel.py:224" if v.startswith("sub")
+                             else "tools/microbench_kernel.py:149"),
+                "launches": launches[f"fwd_segments[{v}]"] + launches[f"fwd_combine[{v}]"],
+                "max_abs_err": checks[f"fwd[{v}]"].get("max_abs_err"),
+                "ms": r["ms"], "plain_ms": checks[f"fwd[{v}]"]["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                "ms_by_launch": r["ms_by_launch"], "shape": shape})
+        for kernel in MB.KERNELS:
+            r = bwd_t["variants"][kernel]
+            rows.append({
+                "name": f"microbench_bwdk[{kernel}]", "route": "cuda",
+                "source": "splatapult_tpu_torch/kernels/csrc/composite_bwd_ablate.cu",
+                "replaces": "tools/microbench_bwdk.py:210",
+                "launches": launches[f"bwd[{kernel}]"],
+                "max_abs_err": checks[f"bwd[{kernel}]"].get("max_abs_err"),
+                "ms": r["ms"], "plain_ms": checks[f"bwd[{kernel}]"]["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                "shape": shape,
+                **({"also_serves": ["vpu_cdot", "vpu_carry", "vpu_all"]}
+                   if kernel == "full" else {})})
+        line = {"phase": "microbench", "splats": MICRO_SPLATS, "width": FULL_W,
+                "height": FULL_H, "iters": MICRO_ITERS, **timed, **deep, "launches": launches,
+                "checks": checks, "timing_seconds": timing_s,
+                "early_stop_checks_seconds": early_s, "plain_checks_seconds": checks_s,
+                "seconds": time.perf_counter() - t_phase,
+                "device": kind, "nvidia_smi_name_power_limit": smi}
+        if failures:
+            emit(line)
+            raise AssertionError("microbench: " + "; ".join(failures))
+        return line, rows
+
     # ---- phase 9: the CLI
     from splatapult_tpu_torch.cli import _orbit_rig
     from splatapult_tpu_torch.io.gaussians import load_gaussian_ply, save_gaussian_ply
@@ -2525,6 +2771,14 @@ def main() -> int:
           "fit": {k: fit_line[k] for k in ("steps", "views", "loss_first", "loss_last",
                                            "seconds")},
           "with_cameras_json": scene_json})
+
+    # ---- phase 10: the ablation microbenchmarks (tools/microbench_kernel.py,
+    # tools/microbench_bwdk.py): every variant of both timed at the JAX
+    # tools' defaults, counters zeroed just before; then each variant's
+    # kernel held against its plain version on the same inputs
+    micro_json, micro_rows = microbench_phase()
+    emit(micro_json)
+    kernel_rows += micro_rows
 
     emit({"kernels": kernel_rows})
     print(smi, flush=True)

@@ -15,9 +15,19 @@ from __future__ import annotations
 
 LAUNCH_COUNTS = {"expand_fill": 0, "composite_fwd_segments": 0, "composite_fwd_combine": 0,
                  "composite_bwd": 0}
+# the same for the ablation microbenchmark's kernels (tools/microbench_kernel.py,
+# tools/microbench_bwdk.py), per launch and variant: "fwd_segments[noscan]",
+# "fwd_combine[sub2]", "bwd[nomom]", ...; kept apart, so that the render and
+# training paths' counts stay the four above
+ABLATION_LAUNCH_COUNTS = {
+    **{f"fwd_{launch}[{v}]": 0 for launch in ("segments", "combine")
+       for v in ("full", "noscan", "noexp", "scan_bf16", "nowork", "sub2", "sub4")},
+    **{f"bwd[{v}]": 0 for v in ("full", "nowork", "noscan", "noscan2", "nomom", "tri_bf16")},
+}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[k] = 0
+    for counts in (LAUNCH_COUNTS, ABLATION_LAUNCH_COUNTS):
+        for k in counts:
+            counts[k] = 0
 

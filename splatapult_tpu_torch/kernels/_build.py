@@ -49,6 +49,22 @@ SIGNATURES = {
     # mean_off_x, mean_off_y, rows_bf16, stream
     "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
+    # the ablation microbenchmark's variants (f32x16 rows, f32 output rows):
+    # variant, seg_blocks, inst, tile_start, tile_nblk, locs, num_segments,
+    # num_tiles, tiles_x, tile_size, height, block, ln_cutoff, use_cutoff,
+    # stream
+    "splat_ablate_fwd_segments": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _P],
+    # variant, seg_blocks, inst, tile_start, tile_nblk, locs, out,
+    # tile_walked, store_prefix, num_tiles, tiles_x, tile_size, height, block,
+    # ln_cutoff, use_cutoff, early_stop_eps, stream
+    "splat_ablate_fwd_combine": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _F, _I, _F, _P],
+    # variant, inst, tile_start, tile_walked, ckpt, out_res, dout, d_inst,
+    # num_segments, num_tiles, mcap, tiles_x, tile_size, height, block,
+    # ln_cutoff, use_cutoff, stream
+    "splat_ablate_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _P],
 }
 
 _lib = None

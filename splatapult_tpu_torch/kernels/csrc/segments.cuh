@@ -21,6 +21,9 @@
 constexpr int kSegBlocks = 8;
 static_assert(kSegBlocks > 0, "a segment holds at least one block");
 
+// (kSeg: segments of another length, for the ablation microbenchmark's
+// longer segments only; see composite_fwd.cuh)
+template <int kSeg = kSegBlocks>
 __device__ __forceinline__ int first_segment(int tile_start_t, int t) {
-  return tile_start_t / kSegBlocks + t;
+  return tile_start_t / kSeg + t;
 }

@@ -352,8 +352,11 @@ def composite_fwd_plain(inst, tile_start, tile_nblk, grid: TileGrid, checkpoints
     return _serial_walk(_decoded_rows(inst, grid), tile_start, tile_nblk, grid, checkpoints)
 
 
-def _serial_walk(rows, tile_start, tile_nblk, grid: TileGrid, checkpoints=False):
-    """composite_fwd_plain on decoded rows [mcap, 9]."""
+def _serial_walk(rows, tile_start, tile_nblk, grid: TileGrid, checkpoints=False, blend=None):
+    """composite_fwd_plain on decoded rows [mcap, 9]; ``blend`` takes
+    _blend_block's arguments and stands in for it (the ablation tools' plain
+    versions swap the per-block arithmetic so)."""
+    blend = _blend_block if blend is None else blend
     dev = rows.device
     num_tiles, b, p = grid.num_tiles, grid.block, grid.tile_pixels
     px, py = _pixel_coords(grid, dev)  # [T, P]
@@ -378,7 +381,7 @@ def _serial_walk(rows, tile_start, tile_nblk, grid: TileGrid, checkpoints=False)
                 at = (tile_seg0 + rank // SEGMENT_BLOCKS)[active].long()
                 ckpt[at] = torch.cat([color, trans[:, None]], dim=1)[active]
         f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, 9]
-        color, trans = _blend_block(f, px, py, active, color, trans, grid)
+        color, trans = blend(f, px, py, active, color, trans, grid)
         if (rank + 1) % SEGMENT_BLOCKS == 0:
             # a segment boundary (rounding the state of a tile that stopped or
             # ended before it again changes nothing its rows show)
@@ -505,7 +508,7 @@ def combine_segments_plain(locs, inst, tile_start, tile_nblk, grid: TileGrid,
 
 
 def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGrid,
-                        state=None, segments=None):
+                        state=None, segments=None, block_step=None):
     """Plain PyTorch version of the composite backward kernel -> [9, mcap].
 
     All tiles advance together by block rank, as in composite_fwd_plain; the
@@ -529,7 +532,11 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
     walk the blocks ``segments.walked`` says, as the kernel does: the kernel's
     exact inputs, for holding it against this version where a rounding
     between two forwards could otherwise differ (bf16 accumulation).
+
+    ``block_step`` takes _bwd_block's arguments and stands in for it (the
+    ablation tools' plain versions swap the per-block arithmetic so).
     """
+    block_step = _bwd_block if block_step is None else block_step
     bf16 = grid.accum_dtype == "bfloat16"
     if bf16 and state is not None:
         raise ValueError("composite_bwd_plain takes a state with float32 accumulation only")
@@ -542,6 +549,7 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
     tcx, tcy = (c[:, None] for c in _tile_centers(grid, dev))  # [T, 1]
     u, v = _local_coords(grid, dev)  # [P]
     basis = torch.stack([u * u, u * v, v * v, u, v, torch.ones_like(u)], dim=1)  # [P, 6]
+    geom = (basis, tcx, tcy)
     out_res, dout = out_res.float(), dout.float()
     d_rgb = dout[:, 0:3, :]  # [T, 3, P]
     kconst = ((dout[:, 3, :] - dout[:, 4, :]) * out_res[:, 4, :]
@@ -570,42 +578,57 @@ def composite_bwd_plain(inst, tile_start, tile_nblk, out_res, dout, grid: TileGr
         if segments is None and grid.early_stop_eps > 0.0 and rank > 0:
             active = active & (trans.amax(dim=1) >= grid.early_stop_eps)
         f = blocks[torch.clamp(tile_start + rank, 0, nb - 1).long()]  # [T, B, 9]
-        w = _block_weights(f, px, py, active, grid)  # [T, B, P]
-        one_minus = 1.0 - w
-        incl = torch.cumprod(one_minus, dim=1)
-        t_before = trans[:, None, :] * torch.cat(
-            [torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
-        eff = t_before * w  # [T, B, P]
-        cdot = torch.einsum("tbc,tcp->tbp", f[:, :, F_R:F_R + 3], d_rgb)
-        s_incl = ssum[:, None, :] + torch.cumsum(eff * cdot, dim=1)
-        dqh = w * ((kconst[:, None, :] + s_incl) / torch.clamp_min(one_minus, 1e-9)
-                   + t_before * cdot)
-        del cdot, t_before, one_minus, w
-        mom = torch.einsum("tbp,pk->tbk", dqh, basis)  # [T, B, 6]
-        del dqh
-        m_uu, m_uv, m_vv, m_u, m_v, m_1 = mom.unbind(dim=2)  # [T, B] each
-        mxu = f[:, :, F_MX] - tcx
-        myu = f[:, :, F_MY] - tcy
-        qa, qb, qc = f[:, :, F_QA], f[:, :, F_QB], f[:, :, F_QC]
-        gx = m_u - mxu * m_1  # sum dqh * dx  (dx = u - mxu)
-        gy = m_v - myu * m_1
-        cols = torch.stack([
-            -(2.0 * qa * gx + qb * gy),
-            -(qb * gx + 2.0 * qc * gy),
-            m_uu - 2.0 * mxu * m_u + mxu * mxu * m_1,
-            m_uv - mxu * m_v - myu * m_u + mxu * myu * m_1,
-            m_vv - 2.0 * myu * m_v + myu * myu * m_1,
-            m_1,
-            *torch.einsum("tbp,tcp->ctb", eff, d_rgb).unbind(dim=0),
-        ])  # [9, T, B]
+        cols, eff, trans, ssum = block_step(f, px, py, active, trans, ssum, kconst, d_rgb,
+                                            geom, grid)
         if bf16:
             color = color + torch.einsum("tbc,tbp->tcp", f[:, :, F_R:F_R + 3], eff)
         del eff
         # skipped and exhausted tiles keep their zero columns
         d_blocks[:, (tile_start + rank)[active].long()] = cols[:, active]
-        trans = trans * incl[:, -1]
-        ssum = s_incl[:, -1]
     return d_blocks.reshape(NUM_GRAD_COLS, nb * b)
+
+
+def _bwd_block(f, px, py, active, trans, ssum, kconst, d_rgb, geom, grid: TileGrid):
+    """One block of decoded rows per tile, f [T, B, 9], of composite_bwd_plain's
+    walk from the state (T, S) [T, P] each -> (its nine gradient columns
+    [9, T, B], eff [T, B, P], T and S after it). ``geom`` = (basis [P, 6],
+    tcx, tcy [T, 1]): the tile-local monomials and the tile centres."""
+    w = _block_weights(f, px, py, active, grid)  # [T, B, P]
+    one_minus = 1.0 - w
+    incl = torch.cumprod(one_minus, dim=1)
+    t_before = trans[:, None, :] * torch.cat(
+        [torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    eff = t_before * w  # [T, B, P]
+    cdot = torch.einsum("tbc,tcp->tbp", f[:, :, F_R:F_R + 3], d_rgb)
+    s_incl = ssum[:, None, :] + torch.cumsum(eff * cdot, dim=1)
+    dqh = w * ((kconst[:, None, :] + s_incl) / torch.clamp_min(one_minus, 1e-9)
+               + t_before * cdot)
+    del cdot, t_before, one_minus, w
+    cols = _grad_cols(f, dqh, eff, d_rgb, geom)
+    return cols, eff, trans * incl[:, -1], s_incl[:, -1]
+
+
+def _grad_cols(f, dqh, eff, d_rgb, geom):
+    """The nine gradient columns [9, T, B] of one block per tile from dqh and
+    eff [T, B, P]: the six geometry columns from dqh's pixel sums against the
+    tile-local monomials, the three colour columns from eff's."""
+    basis, tcx, tcy = geom
+    mom = torch.einsum("tbp,pk->tbk", dqh, basis)  # [T, B, 6]
+    m_uu, m_uv, m_vv, m_u, m_v, m_1 = mom.unbind(dim=2)  # [T, B] each
+    mxu = f[:, :, F_MX] - tcx
+    myu = f[:, :, F_MY] - tcy
+    qa, qb, qc = f[:, :, F_QA], f[:, :, F_QB], f[:, :, F_QC]
+    gx = m_u - mxu * m_1  # sum dqh * dx  (dx = u - mxu)
+    gy = m_v - myu * m_1
+    return torch.stack([
+        -(2.0 * qa * gx + qb * gy),
+        -(qb * gx + 2.0 * qc * gy),
+        m_uu - 2.0 * mxu * m_u + mxu * mxu * m_1,
+        m_uv - mxu * m_v - myu * m_u + mxu * myu * m_1,
+        m_vv - 2.0 * myu * m_v + myu * myu * m_1,
+        m_1,
+        *torch.einsum("tbp,tcp->ctb", eff, d_rgb).unbind(dim=0),
+    ])  # [9, T, B]
 
 
 def _check_kernel_args(name, inst, tile_start, tile_nblk, grid: TileGrid):

@@ -200,6 +200,60 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 
 
+# multiply-adds per (slot, pixel) pair above the discard, by piece: the
+# forward's ~15 (the exp counted as 4) and the backward's ~40 (the replay of
+# the forward's weights and T, then the rest); and per walked slot, one test
+# against its tile's rectangle. The ablation tools count each variant's
+# function by changing the pieces it changes.
+FWD_PAIR_MADDS = {"exponent": 6, "exp": 4, "weight": 1, "colour": 3, "transmittance": 1}
+BWD_PAIR_MADDS = {"replay": 15, "cdot": 3, "eff_and_s": 2, "dw": 6, "dqh_and_t": 2,
+                  "products": 9, "pixel_sums": 3}
+SLOT_MADDS = 25
+
+
+def bound(nbytes, flop) -> dict:
+    """The larger of the bytes' time at the memory rate and the operations'
+    at the fp32 rate -> {"bound_ms", "bound_by"}."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def composite_counts(inst, start, seg, grid, val_bytes: int) -> dict:
+    """What composite_bounds counts on these inputs: the walked slots and
+    blocks, the live segments, the (slot, pixel) pairs above the discard, and
+    the bytes each function must move -> a dict of those ("fwd_bytes",
+    "bwd_bytes"; "rows_bytes": the walked rows read, "out_bytes": the
+    forward's output rows written, "cols_bytes": the backward's nine columns
+    written)."""
+    from splatapult_tpu_torch.ops import composite as C
+
+    p = grid.tile_pixels
+    walked_blocks = int(seg.walked.sum())
+    needed_slots = walked_blocks * grid.block
+    live_segments = int(C.segment_table(start, seg.walked, grid)[2].sum())
+    touched = touched_shares(inst, start, seg.walked, grid)["all_tiles"]
+    row_bytes = inst.element_size() * inst.shape[1]
+    # the tiles whose rows the function must write (a band's own: the
+    # others' rows are written, but nobody reads them)
+    tiles_out = grid.num_tiles // grid.row_stride
+    rows_bytes = row_bytes * needed_slots + 8 * tiles_out
+    out_bytes = 8 * val_bytes * tiles_out * p
+    cols_bytes = 4 * C.NUM_GRAD_COLS * needed_slots
+    # (the forward's locals, written and read once between its two kernels,
+    # are the design's traffic, not the function's); the backward reads five
+    # rows each of the forward's output and its cotangent per pixel, and per
+    # pixel and segment a checkpoint of four floats
+    return {"walked_blocks": walked_blocks, "walked_slots": needed_slots,
+            "live_segments": live_segments, "tile_pixels": p,
+            "pairs_above": touched["row_pixel_pairs_above_discard"],
+            "patch_8x4": touched["patch_8x4"], "rows_bytes": rows_bytes,
+            "out_bytes": out_bytes, "cols_bytes": cols_bytes,
+            "fwd_bytes": rows_bytes + out_bytes,
+            "bwd_bytes": (rows_bytes + cols_bytes + 10 * val_bytes * tiles_out * p
+                          + 16 * live_segments * p)}
+
+
 def composite_bounds(inst, start, seg, grid, val_bytes: int) -> dict:
     """The least time the card could take for B2 (composite_fwd) and B3
     (composite_bwd) on these inputs -> {"walked_slots", "live_segments",
@@ -208,49 +262,32 @@ def composite_bounds(inst, start, seg, grid, val_bytes: int) -> dict:
     Segments (its walked blocks), ``val_bytes`` the bytes of one value of
     its output rows.
 
-    Each input is read once, each output written once; operations are
-    counted on the (slot, pixel) pairs above the alpha discard in the blocks
-    the walk needs (the early stop's walked blocks: a pair past it changes
-    no output), counted with the plain weights' exponent on the decoded
-    rows (touched_shares), plus one test of each such slot against its
-    tile's rectangle (~25 multiply-adds). Per pair the forward does ~15
-    multiply-adds, exp included; the backward that replay and about 25
-    more: cdot 3, eff and S 2, dw with its division 6, dqh and T 2, the
-    nine products 9, and the pixel sums' adds. The layout changes the bytes
-    (4 x num_feats per slot), not the operations (the decode is a few
-    integer operations per row)."""
-    from splatapult_tpu_torch.ops import composite as C
+    Each input is read once, each output written once (composite_counts);
+    operations are counted on the (slot, pixel) pairs above the alpha
+    discard in the blocks the walk needs (the early stop's walked blocks: a
+    pair past it changes no output), counted with the plain weights'
+    exponent on the decoded rows (touched_shares), plus one test of each
+    such slot against its tile's rectangle (SLOT_MADDS). Per pair the
+    forward does FWD_PAIR_MADDS (~15, exp included); the backward
+    BWD_PAIR_MADDS: that replay and about 25 more (cdot 3, eff and S 2, dw
+    with its division 6, dqh and T 2, the nine products 9, and the pixel
+    sums' adds). The layout changes the bytes (4 x num_feats per slot), not
+    the operations (the decode is a few integer operations per row)."""
+    n = composite_counts(inst, start, seg, grid, val_bytes)
+    slots, pairs_above = n["walked_slots"], n["pairs_above"]
+    c_flop = 2 * sum(FWD_PAIR_MADDS.values()) * pairs_above + 2 * SLOT_MADDS * slots
+    b_flop = 2 * sum(BWD_PAIR_MADDS.values()) * pairs_above + 2 * SLOT_MADDS * slots
+    return {"walked_slots": slots, "live_segments": n["live_segments"], "pairs": pair_shares(n),
+            "composite_fwd": bound(n["fwd_bytes"], c_flop),
+            "composite_bwd": bound(n["bwd_bytes"], b_flop)}
 
-    p = grid.tile_pixels
-    needed_slots = int(seg.walked.sum()) * grid.block
-    live_segments = int(C.segment_table(start, seg.walked, grid)[2].sum())
-    touched = touched_shares(inst, start, seg.walked, grid)["all_tiles"]
-    pairs_above = touched["row_pixel_pairs_above_discard"]
-    row_bytes = inst.element_size() * inst.shape[1]
-    # the tiles whose rows the function must write (a band's own: the
-    # others' rows are written, but nobody reads them)
-    tiles_out = grid.num_tiles // grid.row_stride
-    # (the forward's locals, written and read once between its two
-    # kernels, are the design's traffic, not the function's)
-    c_bytes = row_bytes * needed_slots + 8 * val_bytes * tiles_out * p + 8 * tiles_out
-    c_flop = 2 * 15 * pairs_above + 2 * 25 * needed_slots
-    # backward bytes: per slot a row read and nine floats written, per pixel
-    # five rows each of the forward's output and its cotangent read, per
-    # pixel and segment a checkpoint of four floats
-    b_bytes = ((row_bytes + 4 * C.NUM_GRAD_COLS) * needed_slots
-               + 10 * val_bytes * tiles_out * p + 16 * live_segments * p + 8 * tiles_out)
-    b_flop = 2 * 40 * pairs_above + 2 * 25 * needed_slots
 
-    def bound(nbytes, flop):
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
-        return {"bound_ms": max(by_bytes, by_ops),
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-
-    return {"walked_slots": needed_slots, "live_segments": live_segments,
-            "pairs": {"slot_pixel_pairs": needed_slots * p, "pairs_above_discard": pairs_above,
-                      "share_above_discard": pairs_above / max(needed_slots * p, 1),
-                      "row_warp_pairs_touched_as_8x4_patch": touched["patch_8x4"]},
-            "composite_fwd": bound(c_bytes, c_flop), "composite_bwd": bound(b_bytes, b_flop)}
+def pair_shares(n: dict) -> dict:
+    """The (slot, pixel) pair counts of composite_counts' ``n``."""
+    pairs = n["walked_slots"] * n["tile_pixels"]
+    return {"slot_pixel_pairs": pairs, "pairs_above_discard": n["pairs_above"],
+            "share_above_discard": n["pairs_above"] / max(pairs, 1),
+            "row_warp_pairs_touched_as_8x4_patch": n["patch_8x4"]}
 
 
 def main(argv=None) -> int:
