@@ -5,7 +5,11 @@ Needs one NVIDIA GPU (built for sm_90a: an H100), nvcc and PyTorch with CUDA;
 needs no network. It
 
 1. checks for a CUDA device (exits 1 without one, printing no result);
-2. builds the CUDA kernels from splatapult_tpu_torch/kernels/csrc/;
+2. builds the CUDA kernels from splatapult_tpu_torch/kernels/csrc/ into two
+   libraries, the render and training paths' kernels and the tools'
+   diagnostic kernels (the ablation variants and the probes), every source's
+   nvcc started together, and checks that the first exports none of the
+   second's functions;
 3. holds each kernel against its plain PyTorch version on the card — the
    composite forward's two kernels (segment pass, combine) each against its
    own plain version and together against the plain serial walk — on
@@ -148,11 +152,21 @@ needs no network. It
    against the same kernels' walk of the blocks it walked, every pixel
    below the stop there and not one block earlier. Each ablation row of
    the kernels line gives the bound of the variant's own function.
+11. runs the JAX repo's scatter and gather probes (phase probes:
+   splatapult_tpu_torch/tools/probe_scatter.py, P1-P3, and probe_dyngather.py,
+   G1-G2) through the tools' measure() at the JAX tools' shapes and where
+   bytes dominate (4,194,304 rows; [65536, 640]; [640, 65536]), counters
+   zeroed just before and every kernel launched; measure() holds each
+   kernel against its plain version and its library call at both shapes,
+   bit for bit, and times the three in the same held rounds. Then it
+   checks that the wrappers refuse a table that is not a permutation of
+   its block and an index out of range without launching.
 
 Each phase prints one JSON line; any failure raises and the exit code is not 0.
 The last line is {"ok": true, "device": {...}}.
 
-Tolerances. expand_fill: bit-exact (integers). composite_fwd against its plain
+Tolerances. expand_fill: bit-exact (integers); so are the probes (copies and
+gathers: nothing is rounded). composite_fwd against its plain
 version: max abs <= 1e-4, except that at most a 1e-4 fraction of values may
 differ by up to 5e-3 — the 1/256 alpha discard is a hard threshold on the
 exponent, and float rounding (fused multiply-adds in the kernel, cumprod
@@ -278,6 +292,9 @@ DECOMP_ITERS, DECOMP_GAP = 3, 0.15
 # per splat, 5 timed repeats, the backward's early stop), at which every
 # variant is also held against its plain version
 MICRO_SPLATS, MICRO_INSTANCE_MULT, MICRO_ITERS, MICRO_EARLY_STOP = 1_000_000, 2.0, 5, 1e-4
+# probes: the shapes where bytes dominate (P1-P3 at 4096 blocks of 1024 rows,
+# the JAX tool's baselines' 4,194,304 rows; G1 [65536, 640]; G2 [640, 65536])
+PROBE_BLOCKS, PROBE_LANE_ROWS, PROBE_SUB_COLS = 4096, 65536, 65536
 # how near the discard threshold a row's exponent must lie for a flip of
 # that row between the kernel's and the plain version's float32 orders to
 # explain a noexp pixel beyond the tolerance (noexp_close)
@@ -293,6 +310,17 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+def exported_names(lib_path: str):
+    """The splat_* functions a shared library exports, as `nm -D` lists them
+    (None without nm)."""
+    if shutil.which("nm") is None:
+        return None
+    out = subprocess.run(["nm", "-D", "--defined-only", lib_path], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return sorted(ln.split()[-1] for ln in out.splitlines() if ln.split()[-1:] and
+                  ln.split()[-1].startswith("splat_"))
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -768,6 +796,105 @@ def run_world(world: int, backend: str, meshes, timeout_s: float = MESH_WORLD_TI
     return results, time.perf_counter() - t0
 
 
+def probes_phase(dev, kind: str, smi: str):
+    """Phase probes -> (its JSON, the probe kernels' rows of the kernels
+    line): the JAX repo's scatter and gather probes through the port's
+    tools at the JAX tools' shapes and where bytes dominate."""
+    from splatapult_tpu_torch.tools import probe_dyngather as PG, probe_scatter as PS
+
+    t_phase = time.perf_counter()
+    shapes = {"jax": (PS.NB, PG.R, PG.L2),
+              "large": (PROBE_BLOCKS, PROBE_LANE_ROWS, PROBE_SUB_COLS)}
+    inputs = {at: {"scatter": PS.on_device(PS.make_inputs(nb, 0, baselines=at == "large"),
+                                           dev),
+                   "gather": PG.on_device(PG.make_inputs(lane_rows, sub_cols, 0), dev)}
+              for at, (nb, lane_rows, sub_cols) in shapes.items()}
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t_phase
+    PS.reset_launch_counts()
+    PG.reset_launch_counts()
+    timed = {at: {"probe_scatter": PS.measure(inp["scatter"]),
+                  "probe_dyngather": PG.measure(inp["gather"])}
+             for at, inp in inputs.items()}
+    launches = {**PS.LAUNCH_COUNTS, **PG.LAUNCH_COUNTS}
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"probes: a kernel was not launched: {launches}")
+    # measure() held every kernel against its plain version (bit for bit: a
+    # copy and a gather, nothing to round) and against the library call
+    failures = [f"probes: {tool}[{k}] at the {at} shape differs from its plain version"
+                for at, by_tool in timed.items() for tool, r in by_tool.items()
+                for k, p in r["probes"].items() if not p["equal"]]
+
+    # the wrappers refuse a table or an index that breaks their contract,
+    # before they launch anything
+    sc, g = inputs["jax"]["scatter"], inputs["jax"]["gather"]
+
+    def changed(t, at, value):
+        t = t.clone()
+        t[at] = value
+        return t
+
+    dup_dest = changed(sc["dest"], (3, 7), int(sc["dest"][3, 8]))
+    far_dest = changed(sc["dest"], (5, 0), PS.B)  # a row of the next block
+    dup_cdest = changed(sc["cdest"], (2, 0), int(sc["cdest"][2, 1]))
+    neg_cdest = changed(sc["cdest"], (9, 4), -1)
+    cases = {
+        "scatter_rows, a duplicate": lambda: PS.scatter_rows(sc["rows"], dup_dest),
+        "scatter_rows, out of its block": lambda: PS.scatter_rows(sc["rows"], far_dest),
+        "scatter_chunks, a duplicate": lambda: PS.scatter_chunks(sc["rows"], dup_cdest),
+        "scatter_half_chunks, negative": lambda: PS.scatter_half_chunks(sc["rows"],
+                                                                        neg_cdest),
+        "gather_lane, negative": lambda: PG.gather_lane(
+            g["lane_x"], changed(g["lane_idx"], (1, 2), -1)),
+        "gather_lane, = L": lambda: PG.gather_lane(
+            g["lane_x"], changed(g["lane_idx"], (7, 639), PG.L)),
+        "gather_sub, = R": lambda: PG.gather_sub(
+            g["sub_x"], changed(g["sub_idx"], (600, 3), PG.R2))}
+    counted = {**PS.LAUNCH_COUNTS, **PG.LAUNCH_COUNTS}
+    refusals = {}
+    for name, call in cases.items():
+        try:
+            call()
+            failures.append(f"probes: {name} was not refused")
+        except ValueError as e:
+            refusals[name] = str(e)
+    if {**PS.LAUNCH_COUNTS, **PG.LAUNCH_COUNTS} != counted:
+        failures.append("probes: a refused call launched its kernel")
+
+    rows = []
+    for tool, mod, src in (("probe_scatter", PS, "probe_scatter.cu"),
+                           ("probe_dyngather", PG, "probe_gather.cu")):
+        for k, (_, count) in mod.PROBES.items():
+            big_t, small_t = timed["large"][tool], timed["jax"][tool]
+            big, small = big_t["probes"][k], small_t["probes"][k]
+            rows.append({
+                "name": f"{tool}[{k}]", "route": "cuda",
+                "source": f"splatapult_tpu_torch/kernels/csrc/{src}",
+                "replaces": mod.REPLACES[k], "launches": launches[count],
+                "max_abs_err": max(big["max_abs_err"], small["max_abs_err"]),
+                "ms": big["ms"], "plain_ms": big["plain_ms"],
+                "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                "library_ms": big["library_ms"], "library": big["library"],
+                "shape": (f"{big_t['rows']} rows of {big_t['width']} f32" if tool == "probe_scatter"
+                          else f"x {big['x']}, idx {big['idx']} int32")
+                + f"; ms and plain_ms the median of {PS.ITERS} held events",
+                "at_jax_shape": {
+                    "shape": (f"{small_t['rows']} rows" if tool == "probe_scatter"
+                              else f"x {small['x']}"),
+                    "ms": small["ms"], "plain_ms": small["plain_ms"],
+                    "bound_ms": small["bound_ms"], "library_ms": small["library_ms"],
+                    "note": f"a launch: its bound is {small['bound_ms'] * 1e3:.3f} us"}})
+    line = {"phase": "probes", "iters": PS.ITERS, "timed": timed, "launches": launches,
+            "refusals": refusals, "inputs_seconds": inputs_s,
+            "seconds": time.perf_counter() - t_phase,
+            "device": kind, "nvidia_smi_name_power_limit": smi}
+    del inputs
+    if failures:
+        emit(line)
+        raise AssertionError("; ".join(failures))
+    return line, rows
+
+
 def main() -> int:
     # ---- phase 1: device
     if not torch.cuda.is_available():
@@ -797,16 +924,23 @@ def main() -> int:
           "nvidia_smi_name_power_limit": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- phase 2: build
+    # ---- phase 2: build (both libraries, every source's nvcc started together)
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
+    lib_paths = _build.build(_build.SHIPPED, _build.TOOLS)
+    shipped_lib = _build.load()
+    _build.load(_build.TOOLS)
+    # the shipped library holds the render and training kernels and no tool's
+    tools_in_shipped = [n for n in _build.TOOL_SIGNATURES if hasattr(shipped_lib, n)]
+    if tools_in_shipped:
+        raise AssertionError(f"build: the shipped library exports tool kernels {tools_in_shipped}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.last_build_seconds,
-          "ptxas": [ln.strip() for ln in _build.last_build_log.splitlines()
-                    if "Used" in ln or "spill" in ln],
-          "library": os.path.relpath(lib_path, ROOT),
-          "sources": [os.path.relpath(p, ROOT) for p in _build.sources()]})
+          "ptxas": {src: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+                    for src, log in _build.last_build_logs.items()},
+          "libraries": {lib: os.path.relpath(path, ROOT) for lib, path in lib_paths.items()},
+          "exports": {lib: exported_names(path) for lib, path in lib_paths.items()},
+          "sources": {lib: [os.path.relpath(p, ROOT) for p in _build.sources(lib)]
+                      for lib in lib_paths}})
 
     dev = torch.device("cuda")
 
@@ -2562,11 +2696,13 @@ def main() -> int:
             raise AssertionError(f"microbench: {int(bins['num_culled_instances'])} culled")
         es_grid = dataclasses.replace(grid, early_stop_eps=MICRO_EARLY_STOP)
         kernels.reset_launch_counts()
+        MK.reset_launch_counts()
+        MB.reset_launch_counts()
         timed = {"microbench_kernel": MK.measure_inputs(grid, bins, inst, start, nblk,
                                                         MICRO_ITERS, MK.VARIANTS),
                  "microbench_bwdk": MB.measure_inputs(es_grid, bins, inst, start, nblk,
                                                       MICRO_ITERS, MB.VARIANTS)}
-        launches = dict(kernels.ABLATION_LAUNCH_COUNTS)
+        launches = {**MK.LAUNCH_COUNTS, **MB.LAUNCH_COUNTS}
         timing_s = time.perf_counter() - t_phase
         shipped_launches = {k: kernels.LAUNCH_COUNTS[k] for k in (
             "composite_fwd_segments", "composite_fwd_combine", "composite_bwd")}
@@ -2779,6 +2915,15 @@ def main() -> int:
     micro_json, micro_rows = microbench_phase()
     emit(micro_json)
     kernel_rows += micro_rows
+
+    # ---- phase 11: the scatter and gather probes (tools/probe_scatter.py,
+    # tools/test_dyngather.py): every kernel through the port's tools at the
+    # JAX tools' shapes and at shapes where bytes dominate, counters zeroed
+    # just before, each held against its plain version bit for bit; then
+    # the wrappers' refusals of a broken table or index
+    probe_json, probe_rows = probes_phase(dev, kind, smi)
+    emit(probe_json)
+    kernel_rows += probe_rows
 
     emit({"kernels": kernel_rows})
     print(smi, flush=True)

@@ -1,12 +1,17 @@
-"""Build csrc/*.cu with nvcc into one shared library and bind it with ctypes.
+"""Build csrc/*.cu with nvcc into two shared libraries and bind them with ctypes.
 
-The library is built at first use, from the sources next to this file and
-nothing else, into ``_build/<hash of the sources>/`` (git-ignored), so an edit
-to any source rebuilds. Each source compiles to an object in its own nvcc
-process (all started together); one link step makes ``libsplat_kernels.so``.
-A failed build raises with nvcc's output. The C interface takes raw device
-pointers and the CUDA stream as ``void*`` and returns the launch's
-``cudaGetLastError()`` code.
+``libsplat_kernels.so`` holds the kernels of the render and training paths
+(``expand.cu``, ``composite_fwd.cu``, ``composite_bwd.cu``); ``libsplat_tools.so``
+the diagnostic kernels that only the tools under ``tools/`` launch (the
+ablation variants, ``composite_*_ablate.cu``, and the scatter and gather
+probes, ``probe_*.cu``), so a render user never compiles them. Each library is
+built at first use, from its own ``.cu`` files and every header next to them,
+into ``_build/<hash of those sources>/`` (git-ignored), so an edit to any of
+them rebuilds it. Each source compiles to an object in its own nvcc process
+(all started together, those of both libraries when both are built at once);
+one link step a library. A failed build raises with nvcc's output. The C
+interface takes raw device pointers and the CUDA stream as ``void*`` and
+returns the launch's ``cudaGetLastError()`` code.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
-COMPILE_FLAGS = ["-Xptxas", "-v"]  # registers, shared memory, spills -> last_build_log
+COMPILE_FLAGS = ["-Xptxas", "-v"]  # registers, shared memory, spills -> last_build_logs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes (every pointer and the stream are c_void_p: ctypes would
@@ -49,6 +54,9 @@ SIGNATURES = {
     # mean_off_x, mean_off_y, rows_bf16, stream
     "splat_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
+}
+# the tools library: the ablation microbenchmark's variants and the probes
+TOOL_SIGNATURES = {
     # the ablation microbenchmark's variants (f32x16 rows, f32 output rows):
     # variant, seg_blocks, inst, tile_start, tile_nblk, locs, num_segments,
     # num_tiles, tiles_x, tile_size, height, block, ln_cutoff, use_cutoff,
@@ -65,17 +73,33 @@ SIGNATURES = {
     # ln_cutoff, use_cutoff, stream
     "splat_ablate_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                          _P],
+    # rows, dest, out, blocks, block_rows, quads (16-byte parts of a row), stream
+    "splat_probe_scatter_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # rows, cdest, out, blocks, block_rows (chunks of 128 rows), quads, stream
+    "splat_probe_scatter_chunks": [_P, _P, _P, _I, _I, _I, _P],
+    "splat_probe_scatter_half_chunks": [_P, _P, _P, _I, _I, _I, _P],
+    # x, idx, out, rows, x_cols, idx_cols, stream
+    "splat_probe_gather_lane": [_P, _P, _P, _I, _I, _I, _P],
+    # x, idx, out, x_rows, cols, idx_rows, stream
+    "splat_probe_gather_sub": [_P, _P, _P, _I, _I, _I, _P],
+}
+SHIPPED, TOOLS = "splat_kernels", "splat_tools"
+# library -> (its .cu sources, its C functions); every .cuh is hashed into both
+LIBRARIES = {
+    SHIPPED: (("composite_bwd.cu", "composite_fwd.cu", "expand.cu"), SIGNATURES),
+    TOOLS: (("composite_bwd_ablate.cu", "composite_fwd_ablate.cu", "probe_gather.cu",
+             "probe_scatter.cu"), TOOL_SIGNATURES),
 }
 
-_lib = None
-last_build_seconds = None  # wall time of the build this process ran, if any
-last_build_log = ""  # nvcc's output from that build (ptxas -v statistics)
+_libs = {}  # library -> its loaded ctypes.CDLL
+last_build_seconds = None  # wall time of the last build this process ran, if any
+last_build_logs = {}  # source -> nvcc's output for it in that build (ptxas -v statistics)
 
 
-def sources() -> list:
-    return sorted(
-        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-        if f.endswith((".cu", ".cuh")))
+def sources(library: str) -> list:
+    """The library's .cu files and every header: what its hash covers."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cuh") or f in LIBRARIES[library][0])
 
 
 def _source_hash(paths) -> str:
@@ -101,9 +125,9 @@ def _find_nvcc() -> str:
         "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def _run_all(cmds) -> str:
-    """Start every command at once, wait for all -> their combined output;
-    raises with the compiler's output if any failed."""
+def _run_all(cmds) -> list:
+    """Start every command at once, wait for all -> each one's output; raises
+    with the compiler's output if any failed."""
     procs = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True))
@@ -117,51 +141,56 @@ def _run_all(cmds) -> str:
             failures.append(f"$ {' '.join(cmd)}\n{out}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return "".join(log)
+    return log
 
 
-def build() -> str:
-    """Compile the sources if their hash has no library yet -> library path."""
-    global last_build_seconds, last_build_log
-    srcs = sources()
-    cu = [p for p in srcs if p.endswith(".cu")]
-    if not cu:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out_dir = os.path.join(BUILD_ROOT, _source_hash(srcs))
-    lib_path = os.path.join(out_dir, "libsplat_kernels.so")
-    if os.path.isfile(lib_path):
-        return lib_path
+def build(*libraries: str) -> dict:
+    """Compile the named libraries (default: the shipped one) whose sources
+    have no library yet, every source in its own nvcc process, all started
+    together -> library -> path."""
+    global last_build_seconds, last_build_logs
+    paths = {lib: os.path.join(BUILD_ROOT, _source_hash(sources(lib)), f"lib{lib}.so")
+             for lib in (libraries or (SHIPPED,))}
+    todo = [lib for lib, path in paths.items() if not os.path.isfile(path)]
+    if not todo:
+        return paths
     nvcc = _find_nvcc()
-    os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    # build in a private directory and rename into place, so a concurrent or
+    # build in private directories and rename into place, so a concurrent or
     # interrupted build never leaves a half-written library behind
-    work = tempfile.mkdtemp(prefix="build-", dir=out_dir)
+    works = {}
     try:
-        objs = [os.path.join(work, os.path.basename(p)[:-3] + ".o") for p in cu]
-        log = _run_all([[nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
-                        for src, obj in zip(cu, objs)])
-        tmp_lib = os.path.join(work, "libsplat_kernels.so")
-        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs]])
-        os.replace(tmp_lib, lib_path)
+        for lib in todo:
+            os.makedirs(os.path.dirname(paths[lib]), exist_ok=True)
+            works[lib] = tempfile.mkdtemp(prefix="build-", dir=os.path.dirname(paths[lib]))
+        objs = {lib: [os.path.join(works[lib], f[:-3] + ".o") for f in LIBRARIES[lib][0]]
+                for lib in todo}
+        jobs = [(f, o) for lib in todo for f, o in zip(LIBRARIES[lib][0], objs[lib])]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-I", CSRC_DIR, "-c",
+                          os.path.join(CSRC_DIR, f), "-o", o] for f, o in jobs])
+        tmp_libs = {lib: os.path.join(works[lib], os.path.basename(paths[lib])) for lib in todo}
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_libs[lib], *objs[lib]]
+                  for lib in todo])
+        for lib in todo:
+            os.replace(tmp_libs[lib], paths[lib])
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for work in works.values():
+            shutil.rmtree(work, ignore_errors=True)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = log
-    return lib_path
+    last_build_logs = {f: log for (f, _), log in zip(jobs, logs)}
+    return paths
 
 
-def load() -> ctypes.CDLL:
+def load(library: str = SHIPPED) -> ctypes.CDLL:
     """Build if needed, load once per process, declare every signature."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
+    if library not in _libs:
+        lib = ctypes.CDLL(build(library)[library])
+        for name, argtypes in LIBRARIES[library][1].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[library] = lib
+    return _libs[library]
 
 
 def check_launch(code: int, name: str) -> None:

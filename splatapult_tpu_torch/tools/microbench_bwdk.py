@@ -60,7 +60,6 @@ import sys
 
 import torch
 
-from splatapult_tpu_torch import kernels
 from splatapult_tpu_torch.ops import composite as C
 from splatapult_tpu_torch.tools import microbench_kernel as MK
 
@@ -69,6 +68,16 @@ VARIANTS = ("full", "nowork", "noscan", "noscan2", "nomom", "tri_bf16", "vpu_cdo
 DEFAULT_VARIANTS = ("full", "nowork", "noscan", "noscan2", "nomom")
 # the kernels, in the order of BwdVariant (composite_bwd.cuh)
 KERNELS = ("full", "nowork", "noscan", "noscan2", "nomom", "tri_bf16")
+# kernel launches per kernel ("bwd[nomom]", ...), incremented where the
+# kernel is launched and nowhere else
+LAUNCH_COUNTS = {f"bwd[{k}]": 0 for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
 # variant -> the forward variant whose checkpoints it starts from
 FORWARD_OF = {"noscan": "noscan", "tri_bf16": "scan_bf16"}
 COTANGENT = 1e-3  # the JAX tool's dout: ones * 1e-3
@@ -109,7 +118,7 @@ def composite_bwd_variant(inst, tile_start, tile_nblk, out_res, dout, grid, vari
         raise ValueError("composite_bwd_variant on a CUDA tensor takes its forward's segments")
     from splatapult_tpu_torch.kernels import _build
 
-    lib = _build.load()
+    lib = _build.load(_build.TOOLS)
     inst = C._contiguous_aligned(inst)
     tile_start = tile_start.contiguous()
     out_res, dout = out_res.contiguous(), dout.contiguous()
@@ -123,7 +132,7 @@ def composite_bwd_variant(inst, tile_start, tile_nblk, out_res, dout, grid, vari
             nseg, grid.num_tiles, grid.mcap, grid.tiles_x, grid.tile_size, grid.height,
             grid.block, *C._cutoff_args(grid), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, f"ablate_bwd[{kernel}]")
-    kernels.ABLATION_LAUNCH_COUNTS[f"bwd[{kernel}]"] += 1
+    LAUNCH_COUNTS[f"bwd[{kernel}]"] += 1
     return d_inst
 
 

@@ -65,10 +65,20 @@ import sys
 
 import torch
 
-from splatapult_tpu_torch import kernels
 from splatapult_tpu_torch.ops import composite as C
 
 VARIANTS = ("full", "noscan", "noexp", "scan_bf16", "nowork", "sub2", "sub4")
+# kernel launches per launch and variant ("fwd_segments[noscan]",
+# "fwd_combine[sub2]", ...), incremented where the kernel is launched and
+# nowhere else; the shipped kernels count theirs in kernels.LAUNCH_COUNTS
+LAUNCH_COUNTS = {f"fwd_{launch}[{v}]": 0 for launch in ("segments", "combine") for v in VARIANTS}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
 # variant -> (the kernels' FwdVariant, composite_fwd.cuh; blocks a segment)
 _KERNEL_OF = {"full": (0, C.SEGMENT_BLOCKS), "noscan": (1, C.SEGMENT_BLOCKS),
               "noexp": (2, C.SEGMENT_BLOCKS), "scan_bf16": (3, C.SEGMENT_BLOCKS),
@@ -103,7 +113,7 @@ def _launch_segments(inst, tile_start, tile_nblk, grid, variant):
     no segment unwritten)."""
     from splatapult_tpu_torch.kernels import _build
 
-    lib = _build.load()
+    lib = _build.load(_build.TOOLS)
     code_v, seg_blocks = _KERNEL_OF[variant]
     nseg = num_segments_cap(grid, variant)
     locs = torch.empty((nseg, 4, grid.tile_pixels), dtype=torch.float32, device=inst.device)
@@ -113,7 +123,7 @@ def _launch_segments(inst, tile_start, tile_nblk, grid, variant):
             locs.data_ptr(), nseg, grid.num_tiles, grid.tiles_x, grid.tile_size, grid.height,
             grid.block, *C._cutoff_args(grid), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, f"ablate_fwd_segments[{variant}]")
-    kernels.ABLATION_LAUNCH_COUNTS[f"fwd_segments[{variant}]"] += 1
+    LAUNCH_COUNTS[f"fwd_segments[{variant}]"] += 1
     return locs
 
 
@@ -123,7 +133,7 @@ def _launch_combine(locs, inst, tile_start, tile_nblk, grid, variant, checkpoint
     the checkpoints written over ``locs`` in place."""
     from splatapult_tpu_torch.kernels import _build
 
-    lib = _build.load()
+    lib = _build.load(_build.TOOLS)
     code_v, seg_blocks = _KERNEL_OF[variant]
     out = torch.empty((grid.num_tiles, C.OUT_ROWS, grid.tile_pixels), dtype=torch.float32,
                       device=inst.device)
@@ -136,7 +146,7 @@ def _launch_combine(locs, inst, tile_start, tile_nblk, grid, variant, checkpoint
             grid.block, *C._cutoff_args(grid), float(grid.early_stop_eps),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, f"ablate_fwd_combine[{variant}]")
-    kernels.ABLATION_LAUNCH_COUNTS[f"fwd_combine[{variant}]"] += 1
+    LAUNCH_COUNTS[f"fwd_combine[{variant}]"] += 1
     return (out, C.Segments(locs, walked)) if checkpoints else out
 
 
