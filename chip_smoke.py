@@ -69,6 +69,15 @@ needs no network. It
    the sum of its parts, each timed alone: bin_splats of its ten stages,
    composite_fwd of its two launches, per_splat_sums of its four stages,
    the composite forward + backward of the gather, B2, B3 and the tail);
+   then the step's roofline at the same view (roofline: the sort and gather
+   curves of tools/roofline.py measured beside the recorded ones; its rows
+   under the exact and the production profile, the fwd and bwd kernel rows
+   equal to composite_bounds on this binning; the frame, the one-view step
+   and each stage a row is held against timed with the stream held, no
+   floor above its stage, each total below the step and the frame's below
+   the frame; tools/scaling_model.py for D = 1, 2, 4, 8, its per-card emax
+   and mcap equal to calibrate_config_sharded's, the prepare's forward +
+   VJP on N / D splats timed beside the model's price);
 6. renders the same scene through the rest of the viewer, counters zeroed
    just before each: supersample 2 at 1920x1080 (3840x2160 inside,
    calibrated at that size; render_supersample), the 8-view orbit path
@@ -288,6 +297,9 @@ MESH_WORLD_TIMEOUT_S = 300.0
 # profile_decomp: CUDA-event repeats of each stage (median), and how far a
 # stage sum may fall from its whole
 DECOMP_ITERS, DECOMP_GAP = 3, 0.15
+# roofline: held repeats of each measured stage (median), and the card
+# counts of the scaling model's 1 x D meshes
+ROOFLINE_ITERS, SCALING_CHIPS = 3, (1, 2, 4, 8)
 # microbench: the JAX ablation tools' defaults (ball 1M at 1080p, capacity 2
 # per splat, 5 timed repeats, the backward's early stop), at which every
 # variant is also held against its plain version
@@ -594,16 +606,11 @@ def cli_with_cameras_json(tmp, scene, width=640, height=384) -> dict:
 
 def perturbed(scene):
     """The training start: the scene with seeded noise on its colours,
-    opacities and positions (the same in every training phase and rank)."""
-    dev = scene.means.device
-    gen = torch.Generator(device=dev).manual_seed(2)
+    opacities and positions (tools/scenes.perturbed; the same in every
+    training phase and rank)."""
+    from splatapult_tpu_torch.tools.scenes import perturbed as start
 
-    def noisy(t, sigma):
-        return t + sigma * torch.randn(t.shape, generator=gen, device=dev)
-
-    return dataclasses.replace(scene, sh=noisy(scene.sh, 0.1),
-                               opacities=noisy(scene.opacities, 0.3),
-                               means=noisy(scene.means, 0.005))
+    return start(scene)
 
 
 def scaled_grad_errs(leaf, ref_grads, what: str, allow: float = 2e-4) -> dict:
@@ -893,6 +900,123 @@ def probes_phase(dev, kind: str, smi: str):
         emit(line)
         raise AssertionError("; ".join(failures))
     return line, rows
+
+
+def roofline_phase(scene, cam, cfgs: dict, kind: str, smi: str) -> dict:
+    """Phase roofline -> its JSON: tools/roofline.py's floors of one view's
+    step under each of ``cfgs`` ({profile: calibrated config}) against the
+    step measured stage by stage with the stream held (roofline.measure_stages,
+    median of ROOFLINE_ITERS; the frame and the step also by device busy
+    time), the sort and gather curves measured beside the recorded ones, and
+    tools/scaling_model.py at SCALING_CHIPS, priced on the exact profile's
+    measured stages, with its per-card capacities against
+    calibrate_config_sharded's and its prepare times against the card's."""
+    from splatapult_tpu_torch import kernels, train
+    from splatapult_tpu_torch.parallel import mesh as PM
+    from splatapult_tpu_torch.tools import roofline as RL, scaling_model as SM
+    from splatapult_tpu_torch.tools.profile_phases import _profile as profile_device
+    from splatapult_tpu_torch.tools.profile_phases import composite_bounds
+
+    R = importlib.import_module("splatapult_tpu_torch.render")
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    failures = []
+    line = {"phase": "roofline", "splats": scene.num_gaussians, "width": FULL_W,
+            "height": FULL_H, "iters": ROOFLINE_ITERS,
+            "curves_measured": RL.measure_curves("cuda", ROOFLINE_ITERS),
+            "curves_recorded": {"sort": RL.SORT_CURVES, "gather": RL.GATHER_CURVES,
+                                "card": RL.CURVES_CARD}, "profiles": {}}
+    seconds = {"curves": time.perf_counter() - t_phase}
+    n = scene.num_gaussians
+    stages = {}
+    for profile, frame_cfg in cfgs.items():
+        t0 = time.perf_counter()
+        res = RL.roofline(scene, cam, dataclasses.replace(frame_cfg, forward_only=False))
+        # the exact step's prepare also on each tile shard's N / D splats
+        meas = RL.measure_stages(scene, perturbed(scene), cam, frame_cfg, ROOFLINE_ITERS,
+                                 [n // d for d in SCALING_CHIPS] if profile == "exact" else ())
+        ms, busy = meas["stages_ms"], meas["device_busy_ms"]
+        # B2 and B3's bounds again, on the binning the stages ran
+        bounds = composite_bounds(**meas.pop("binning"))
+        stages[profile] = meas
+        rows = {r["name"]: r for r in res["rows"]}
+        for row, key in (("fwd kernel", "composite_fwd"), ("bwd kernel", "composite_bwd")):
+            if not math.isclose(rows[row]["s"] * 1e3, bounds[key]["bound_ms"], rel_tol=1e-12):
+                failures.append(f"roofline[{profile}]: {row} {rows[row]['s'] * 1e3} ms is not "
+                                f"composite_bounds' {bounds[key]['bound_ms']}")
+        table = []
+        for r in res["rows"]:
+            floor, stage = r["s"] * 1e3, ms[r["stage"]]
+            table.append({"row": r["name"], "floor_ms": floor, "radix_floor_ms": r["radix_s"] * 1e3,
+                          "stage": r["stage"], "stage_ms": stage, "share": floor / stage})
+            if not floor <= stage:
+                failures.append(f"roofline[{profile}]: {r['name']}'s floor {floor} ms exceeds "
+                                f"its stage {r['stage']} ({stage} ms)")
+        t = res["totals"]
+        shares = {"step_measured_rate": t["measured_rate_floor_ms"] / ms["step"],
+                  "step_radix_bytes": t["radix_bytes_floor_ms"] / ms["step"],
+                  "step_pure_bytes": t["pure_bytes_ms"] / ms["step"],
+                  "frame_measured_rate": t["frame_floor_ms"] / ms["frame"],
+                  "step_measured_rate_of_busy": t["measured_rate_floor_ms"] / busy["step"],
+                  "frame_measured_rate_of_busy": t["frame_floor_ms"] / busy["frame"]}
+        for k in ("step_measured_rate", "step_radix_bytes", "frame_measured_rate"):
+            if not shares[k] < 1.0:
+                failures.append(f"roofline[{profile}]: the {k} total reaches {shares[k]:.3f} "
+                                f"of the measured {k.split('_')[0]}")
+        line["profiles"][profile] = {
+            "geometry": res["geometry"], "capacity": res["capacity"], "totals": t,
+            "rows": table, "stages_ms": ms, "device_busy_ms": busy, "shares": shares,
+            "composite_bounds_ms": {k: bounds[k]["bound_ms"] for k in
+                                    ("composite_fwd", "composite_bwd")}}
+        seconds[profile] = time.perf_counter() - t0
+
+    # the scaling model priced on the exact step's stages: its per-card
+    # capacities against what calibrate_config_sharded allocates, its
+    # prepare times against the card's
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfgs["exact"], forward_only=False)
+    model = SM.model(scene, cam, cfg, SCALING_CHIPS, measured=stages["exact"])
+    seconds["scaling_model"] = time.perf_counter() - t0
+    prep_calls = {}
+    for d in SCALING_CHIPS:
+        got = model["per_d"][d]
+        cal = PM.calibrate_config_sharded(scene, cam, cfg, {"tiles": d})
+        want = PM._band_grid(cal, n, d)
+        if (got["emax"], got["mcap"]) != (want.emax, want.mcap):
+            failures.append(f"scaling_model D={d}: emax/mcap {got['emax']}/{got['mcap']}, "
+                            f"calibrate_config_sharded {want.emax}/{want.mcap}")
+        part = train.leaf_copy(R.GaussianScene(**{f.name: getattr(scene, f.name)[:n // d]
+                                                  for f in dataclasses.fields(scene)}))
+        part_leaves = [getattr(part, f.name) for f in dataclasses.fields(part)]
+
+        def part_vjp(part=part, part_leaves=part_leaves):
+            dp = R.prepare_splats(part, cam, cfg, sort=False)
+            torch.autograd.grad(dp["mean2d"].sum() + dp["conic"].sum() + dp["rgb"].sum()
+                                + dp["alpha"].sum(), part_leaves)
+
+        prep_calls[n // d] = part_vjp
+    # the card's busy time (CUDA events around this call time the host
+    # issuing its ~900 launches, whatever N)
+    prep_ms = {m: {"device_busy_ms": profile_device(fn, 2, 1.0)["device_busy_ms"],
+                   "recorded_ms": SM.prepare_s(m) * 1e3} for m, fn in prep_calls.items()}
+    del prep_calls
+    seconds["scaling_checks_and_prepare"] = time.perf_counter() - t0 - seconds["scaling_model"]
+    line["scaling_model"] = {
+        "chips": list(SCALING_CHIPS), "bucket": model["bucket"],
+        "pricing": model["pricing"], "scale": model["scale"],
+        "prepare_held_ms_by_splats": {str(m): v for m, v in model["prepare_points"]},
+        "d1_step_ms": {"model": model["per_d"][1]["compute_ms"],
+                       "measured": stages["exact"]["stages_ms"]["step"]},
+        "nvlink_bytes_per_s_assumed": SM.NVLINK_BYTES_PER_S,
+        "per_d": {str(d): r for d, r in model["per_d"].items()},
+        "prepare_fwd_vjp_ms_by_splats": {str(k): v for k, v in prep_ms.items()}}
+    line.update(launches=dict(kernels.LAUNCH_COUNTS), seconds=time.perf_counter() - t_phase,
+                seconds_by_part=seconds,
+                device=kind, nvidia_smi_name_power_limit=smi)
+    emit(line)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return line
 
 
 def main() -> int:
@@ -1794,6 +1918,11 @@ def main() -> int:
     if not all(decomp_launches[c] > 0 for c in decomp_launches):
         raise AssertionError(f"profile_decomp: a kernel was not launched: {decomp_launches}")
     del decomp
+
+    # ---- phase 5e: the step's roofline (tools/roofline.py) against the step
+    # measured stage by stage, exact and production, and the scaling model
+    # (tools/scaling_model.py) for D = 1, 2, 4, 8
+    roofline_phase(scene, cam, {"exact": cfg, "production": prod}, kind, smi)
 
     # ---- phase 6: the rest of the viewer on the same scene
     fwd_once = {"expand_fill": 1, "composite_fwd_segments": 1, "composite_fwd_combine": 1,

@@ -14,7 +14,8 @@ in ``--iters`` rounds of one call each (after two rounds to warm up):
      all-reduce of the small gradients and the loss;
   B. the same band loss and backward with no collective;
   C. the collectives alone on gradient-sized buffers (the SH all-reduce
-     started, then the terminal buffer's);
+     started, then the terminal buffer's), timed from the ranks' common
+     start to their end (a collective ends only once every rank joined it);
 
   overlap = (B + C - A) / C     (1 = the collectives fully hidden, 0 = serial)
 
@@ -69,8 +70,16 @@ def _timed_rounds(fns, iters: int, warmup: int, dev: torch.device) -> list:
     all of them alike. A call starts with every rank together, the device
     drained, and stops when the slowest rank is done (a barrier: the step's
     all-reduce makes every rank wait for the slowest band too); the time of
-    an empty call, the barrier's own, is taken off each."""
+    an empty call, the barrier's own, is taken off each.
+
+    The last of ``fns`` ends in a collective, which completes on a rank only
+    once every rank has joined it: it is timed from the common start to its
+    own end, with no closing barrier and nothing taken off, so its time is
+    positive. (A barrier's time under a loaded host, milliseconds, can
+    exceed that of the collectives of a small scene: taken off them, it left
+    a negative time.)"""
     fns = [lambda: None] + list(fns)
+    last = len(fns) - 1
     for _ in range(warmup):
         for fn in fns:
             fn()
@@ -83,10 +92,11 @@ def _timed_rounds(fns, iters: int, warmup: int, dev: torch.device) -> list:
             t0 = time.perf_counter()
             fns[i]()
             _sync(dev)
-            dist.barrier()
+            if i != last:
+                dist.barrier()
             totals[i] += time.perf_counter() - t0
     ms = [t * 1e3 / iters for t in totals]
-    return [ms[0]] + [t - ms[0] for t in ms[1:]]
+    return [ms[0]] + [t - ms[0] for t in ms[1:last]] + [ms[last]]
 
 
 def measure_overlap(scene, cameras, targets, config, mesh, iters: int = 4,

@@ -273,7 +273,12 @@ def composite_bounds(inst, start, seg, grid, val_bytes: int) -> dict:
     with its division 6, dqh and T 2, the nine products 9, and the pixel
     sums' adds). The layout changes the bytes (4 x num_feats per slot), not
     the operations (the decode is a few integer operations per row)."""
-    n = composite_counts(inst, start, seg, grid, val_bytes)
+    return bounds_of_counts(composite_counts(inst, start, seg, grid, val_bytes))
+
+
+def bounds_of_counts(n: dict) -> dict:
+    """composite_bounds' result from composite_counts' ``n`` (for a caller
+    that needs the counts too: the count of touched pairs walks every tile)."""
     slots, pairs_above = n["walked_slots"], n["pairs_above"]
     c_flop = 2 * sum(FWD_PAIR_MADDS.values()) * pairs_above + 2 * SLOT_MADDS * slots
     b_flop = 2 * sum(BWD_PAIR_MADDS.values()) * pairs_above + 2 * SLOT_MADDS * slots

@@ -8,11 +8,16 @@ or "garden", the trained-scene stand-in of io/synth.make_garden_scene.
 ``bench_camera`` is the one view bench.py draws each from (bench.py:385-412):
 the garden's first orbit camera, or for the ball the eye at (0, 0.8, 4.5)
 looking at the origin, both with a 45 degree vertical field of view.
+``perturbed`` is the training start that chip_smoke.py's training phases and
+tools/scaling_model.py's measured step begin from.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from splatapult_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from splatapult_tpu_torch.io.gaussians import GaussianScene, _scene_from_arrays
@@ -58,3 +63,17 @@ def bench_camera(kind: str, width: int, height: int, device=DEFAULT_DEVICE):
         return garden_cameras(1, width=width, height_px=height, device=device)
     return Camera.from_fov(T.look_at(eye=[0.0, 0.8, 4.5], target=[0, 0, 0], up=[0, 1, 0]),
                            fovy=np.pi / 4, width=width, height=height, device=device)
+
+
+def perturbed(scene: GaussianScene, seed: int = 2) -> GaussianScene:
+    """A training start: ``scene`` with seeded noise on its colours,
+    opacities and positions."""
+    dev = scene.means.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(t, sigma):
+        return t + sigma * torch.randn(t.shape, generator=gen, device=dev)
+
+    return dataclasses.replace(scene, sh=noisy(scene.sh, 0.1),
+                               opacities=noisy(scene.opacities, 0.3),
+                               means=noisy(scene.means, 0.005))
