@@ -167,9 +167,18 @@ needs no network. It
    bytes dominate (4,194,304 rows; [65536, 640]; [640, 65536]), counters
    zeroed just before and every kernel launched; measure() holds each
    kernel against its plain version and its library call at both shapes,
-   bit for bit, and times the three in the same held rounds. Then it
-   checks that the wrappers refuse a table that is not a permutation of
-   its block and an index out of range without launching.
+   bit for bit, and times the three in the same held rounds (their order
+   rotated round by round), with the launch floor every bound is raised
+   to: the lesser of a one-element copy_ and an empty kernel. G1 has two
+   routes (direct, staged), both timed and held at both shapes; then G1's
+   every route and G2 again, bit for bit against the plain version and
+   torch.gather, at odd shapes (idx wider or taller than x, widths that
+   are not multiples of 4 or 32, more index rows than one batch) and on
+   tensors whose storage starts 4 bytes past a 16-byte boundary, so the
+   unaligned branches run. Then it checks that the wrappers refuse a table
+   that is not a permutation of its block, an index out of range, a G2
+   table taller than its strip can stage and a G1 route the shape cannot
+   take, without launching.
 
 Each phase prints one JSON line; any failure raises and the exit code is not 0.
 The last line is {"ok": true, "device": {...}}.
@@ -803,6 +812,57 @@ def run_world(world: int, backend: str, meshes, timeout_s: float = MESH_WORLD_TI
     return results, time.perf_counter() - t0
 
 
+def gather_odd_shapes(dev) -> tuple:
+    """G1 through every route and G2 at shapes the tools' inputs do not
+    have, each bit for bit against its plain version and torch.gather ->
+    ({case: equal}, the launches (G1's by route) these made)."""
+    from splatapult_tpu_torch.tools import probe_dyngather as PG
+
+    def unaligned(t):
+        # t's values in a contiguous tensor whose storage starts 4 bytes past
+        # a 16-byte boundary (the caching allocator aligns a block to 512)
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        if view.data_ptr() % 16 != 4:
+            raise AssertionError(f"probes: the unaligned view starts at {view.data_ptr()}")
+        return view
+
+    rng = np.random.default_rng(0)
+
+    def table(shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def index(bound, shape):
+        return torch.from_numpy(rng.integers(0, bound, shape).astype(np.int32)).to(dev)
+
+    # (axis, x's shape, idx's shape); G1 idx [R, M], G2 idx [M, L]
+    shapes = {"G1 x [3, 37], idx [3, 53]": (1, (3, 37), (3, 53)),
+              "G1 x [3, 36], idx [3, 52]": (1, (3, 36), (3, 52)),
+              "G1 x [5, 2000], idx [5, 9000]": (1, (5, 2000), (5, 9000)),
+              "G2 x [5, 33], idx [7, 33]": (0, (5, 33), (7, 33)),
+              "G2 x [5, 36], idx [7, 36]": (0, (5, 36), (7, 36)),
+              "G2 x [5, 33], idx [300, 33]": (0, (5, 33), (300, 33)),
+              "G1 x [8, 640] unaligned": (1, (PG.R, PG.L), (PG.R, PG.L)),
+              "G2 x [640, 512] unaligned": (0, (PG.R2, PG.L2), (PG.R2, PG.L2))}
+    before = dict(PG.LAUNCH_COUNTS)
+    same = {}
+    for case, (axis, x_shape, idx_shape) in shapes.items():
+        x, idx = table(x_shape), index(x_shape[axis], idx_shape)
+        if "unaligned" in case:
+            x, idx = unaligned(x), unaligned(idx)
+        if axis == 1:
+            want = PG.gather_lane_plain(x, idx)
+            got = [PG.gather_lane(x, idx, route=r) for r in PG.LANE_ROUTES]
+        else:
+            want, got = PG.gather_sub_plain(x, idx), [PG.gather_sub(x, idx)]
+        got.append(torch.gather(x, axis, idx.long()))
+        same[case] = all(torch.equal(g, want) for g in got)
+    torch.cuda.synchronize()
+    return same, {k: n - before[k] for k, n in PG.LAUNCH_COUNTS.items()}
+
+
 def probes_phase(dev, kind: str, smi: str):
     """Phase probes -> (its JSON, the probe kernels' rows of the kernels
     line): the JAX repo's scatter and gather probes through the port's
@@ -826,11 +886,15 @@ def probes_phase(dev, kind: str, smi: str):
     launches = {**PS.LAUNCH_COUNTS, **PG.LAUNCH_COUNTS}
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"probes: a kernel was not launched: {launches}")
-    # measure() held every kernel against its plain version (bit for bit: a
-    # copy and a gather, nothing to round) and against the library call
+    # measure() held every kernel (each gather route) against its plain
+    # version (bit for bit: a copy and a gather, nothing to round) and
+    # against the library call
     failures = [f"probes: {tool}[{k}] at the {at} shape differs from its plain version"
                 for at, by_tool in timed.items() for tool, r in by_tool.items()
                 for k, p in r["probes"].items() if not p["equal"]]
+    odd, odd_launches = gather_odd_shapes(dev)
+    failures += [f"probes: {case} differs from its plain version or torch.gather"
+                 for case, same in odd.items() if not same]
 
     # the wrappers refuse a table or an index that breaks their contract,
     # before they launch anything
@@ -856,7 +920,12 @@ def probes_phase(dev, kind: str, smi: str):
         "gather_lane, = L": lambda: PG.gather_lane(
             g["lane_x"], changed(g["lane_idx"], (7, 639), PG.L)),
         "gather_sub, = R": lambda: PG.gather_sub(
-            g["sub_x"], changed(g["sub_idx"], (600, 3), PG.R2))}
+            g["sub_x"], changed(g["sub_idx"], (600, 3), PG.R2)),
+        "gather_sub, past its rows": lambda: PG.gather_sub(
+            g["sub_x"].new_zeros((PG.SUB_MAX_ROWS + 1, 4)), g["sub_idx"].new_zeros((2, 4))),
+        "gather_lane, staged past its columns": lambda: PG.gather_lane(
+            g["lane_x"].new_zeros((2, PG.LANE_STAGE_MAX_COLS + 1)),
+            g["lane_idx"].new_zeros((2, 4)), route="staged")}
     counted = {**PS.LAUNCH_COUNTS, **PG.LAUNCH_COUNTS}
     refusals = {}
     for name, call in cases.items():
@@ -874,13 +943,13 @@ def probes_phase(dev, kind: str, smi: str):
         for k, (_, count) in mod.PROBES.items():
             big_t, small_t = timed["large"][tool], timed["jax"][tool]
             big, small = big_t["probes"][k], small_t["probes"][k]
-            rows.append({
+            row = {
                 "name": f"{tool}[{k}]", "route": "cuda",
                 "source": f"splatapult_tpu_torch/kernels/csrc/{src}",
-                "replaces": mod.REPLACES[k], "launches": launches[count],
+                "replaces": mod.REPLACES[k], "launches": launches.get(count, 0),
                 "max_abs_err": max(big["max_abs_err"], small["max_abs_err"]),
                 "ms": big["ms"], "plain_ms": big["plain_ms"],
-                "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                "bound_ms": big["bytes_bound_ms"], "bound_by": "bytes",
                 "library_ms": big["library_ms"], "library": big["library"],
                 "shape": (f"{big_t['rows']} rows of {big_t['width']} f32" if tool == "probe_scatter"
                           else f"x {big['x']}, idx {big['idx']} int32")
@@ -889,9 +958,27 @@ def probes_phase(dev, kind: str, smi: str):
                     "shape": (f"{small_t['rows']} rows" if tool == "probe_scatter"
                               else f"x {small['x']}"),
                     "ms": small["ms"], "plain_ms": small["plain_ms"],
-                    "bound_ms": small["bound_ms"], "library_ms": small["library_ms"],
-                    "note": f"a launch: its bound is {small['bound_ms'] * 1e3:.3f} us"}})
+                    "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+                    "bytes_bound_ms": small["bytes_bound_ms"],
+                    "launch_floor_ms": small_t["launch_floor_ms"],
+                    "launch_floor_calls_ms": small_t["launch_floor_calls_ms"],
+                    "library_ms": small["library_ms"],
+                    "note": "bound_ms: the larger of the bytes' time and the launch floor"}}
+            if mod is PG and k == "lane":
+                # G1's launches are its routes'; ms is the route its wrapper
+                # picks at each shape, routes_ms every route's
+                by_route = {r: launches[f"{count}/{r}"] for r in PG.LANE_ROUTES}
+                row.update(launches=sum(by_route.values()), launches_by_route=by_route,
+                           gather_route=big["route"], routes_ms=big["routes_ms"],
+                           odd_shape_launches_by_route={
+                               r: odd_launches[f"{count}/{r}"] for r in PG.LANE_ROUTES})
+                row["at_jax_shape"].update(gather_route=small["route"],
+                                           routes_ms=small["routes_ms"])
+            elif mod is PG:
+                row.update(odd_shape_launches=odd_launches[count])
+            rows.append(row)
     line = {"phase": "probes", "iters": PS.ITERS, "timed": timed, "launches": launches,
+            "gather_odd_shapes": odd, "gather_odd_shape_launches": odd_launches,
             "refusals": refusals, "inputs_seconds": inputs_s,
             "seconds": time.perf_counter() - t_phase,
             "device": kind, "nvidia_smi_name_power_limit": smi}

@@ -78,10 +78,12 @@ TOOL_SIGNATURES = {
     # rows, cdest, out, blocks, block_rows (chunks of 128 rows), quads, stream
     "splat_probe_scatter_chunks": [_P, _P, _P, _I, _I, _I, _P],
     "splat_probe_scatter_half_chunks": [_P, _P, _P, _I, _I, _I, _P],
-    # x, idx, out, rows, x_cols, idx_cols, stream
-    "splat_probe_gather_lane": [_P, _P, _P, _I, _I, _I, _P],
+    # x, idx, out, rows, x_cols, idx_cols, route (0 direct, 1 staged), stream
+    "splat_probe_gather_lane": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, idx, out, x_rows, cols, idx_rows, stream
     "splat_probe_gather_sub": [_P, _P, _P, _I, _I, _I, _P],
+    # stream: an empty kernel, the probes' launch floor
+    "splat_probe_empty": [_P],
 }
 SHIPPED, TOOLS = "splat_kernels", "splat_tools"
 # library -> (its .cu sources, its C functions); every .cuh is hashed into both

@@ -93,6 +93,10 @@ int launch_chunks(const void* rows, const void* cdest, void* out, int blocks, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// Does nothing: one launch of it, timed in the probes' rounds, is their
+// launch floor (tools/probe_scatter.py, launch_floor_calls).
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // P1. rows, out [blocks * block_rows, 4 * quads] f32 (16-byte aligned);
@@ -121,4 +125,10 @@ extern "C" int splat_probe_scatter_half_chunks(const void* rows, const void* cde
                                                int blocks, int block_rows, int quads,
                                                void* stream) {
   return launch_chunks<true>(rows, cdest, out, blocks, block_rows, quads, stream);
+}
+
+// An empty kernel, one thread: the least a launch costs.
+extern "C" int splat_probe_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

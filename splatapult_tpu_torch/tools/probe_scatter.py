@@ -38,15 +38,19 @@ alone and the sort with torch's index_select as the row gather).
 
 Timing: profile_bin.rounds_ms (each call timed alone by CUDA events with the
 stream held while the host issues it, the median of 30 after one warm-up,
-the calls taking turns round by round), not the JAX tool's minimum
-of host-timed calls. Bounds: the bytes each function must move (each input
-read once, each output written once) at 3.35 TB/s (profile_phases.bound).
+the calls taking turns round by round, the order rotated by one each round),
+not the JAX tool's minimum of host-timed calls. Bounds: the bytes each
+function must move (each input read once, each output written once) at 3.35
+TB/s (profile_phases.bound), raised to the launch floor where that is larger:
+the lesser of a one-element copy_ and an empty kernel, timed in the same
+rounds (``launch_floor_ms``; at the JAX tool's shapes the bytes take a
+microsecond or less).
 
 It prints the JAX tool's lines (``A per-row dynamic store: OK 0.5 ns/row
 ...``) and, last, one JSON line: per kernel its ms, ns_per_row, bound,
 library call and time, and whether kernel, plain version and library call
-agree bit for bit; the baselines' ms and ns/row; the card's name and power
-limit as nvidia-smi reports them. No fallback: where the JAX tool prints
+agree bit for bit; the baselines' ms and ns/row; the launch floor; the
+card's name and power limit as nvidia-smi reports them. No fallback: where the JAX tool prints
 FAILED for a mechanism Mosaic cannot lower, a kernel here that fails to
 build, launch or match raises. GPU only: with no CUDA device it exits 1.
 """
@@ -221,6 +225,46 @@ def library_calls(rows, dest, cdest) -> dict:
     }
 
 
+def launch_floor_calls(device) -> dict:
+    """Two launches that do next to nothing -> {name: function of no
+    arguments}: "copy_", a one-element copy_ (4 bytes; ATen may issue it as
+    a device-to-device memcpy, not a kernel), and "empty_kernel", an empty
+    kernel of the tools library (splat_probe_empty, one thread). Timed in
+    the same rounds as the probes; launch_floor takes the smaller."""
+    src = torch.zeros(1, dtype=torch.int32, device=device)
+    dst = torch.empty_like(src)
+
+    def empty_kernel():
+        from splatapult_tpu_torch.kernels import _build
+
+        with torch.cuda.device(src.device):
+            code = _build.load(_build.TOOLS).splat_probe_empty(
+                torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(code, "splat_probe_empty")
+
+    return {"copy_": lambda: dst.copy_(src), "empty_kernel": empty_kernel}
+
+
+def launch_floor(ms: dict) -> dict:
+    """The launch floor from rounds_ms's times, whose ``launch_floor/<name>``
+    keys are launch_floor_calls' -> {"launch_floor_ms": the least of them,
+    "launch_floor_calls_ms": {name: ms}}."""
+    by_call = {k.split("/", 1)[1]: v for k, v in ms.items() if k.startswith("launch_floor/")}
+    return {"launch_floor_ms": min(by_call.values()), "launch_floor_calls_ms": by_call}
+
+
+def bound_with_floor(nbytes: int, floor_ms: float) -> dict:
+    """profile_phases.bound of the bytes, raised to the launch floor where
+    that is larger -> {"bound_ms", "bound_by" ("bytes" or "launch"),
+    "bytes_bound_ms"}."""
+    from splatapult_tpu_torch.tools.profile_phases import bound
+
+    by_bytes = bound(nbytes, 0)["bound_ms"]
+    if floor_ms > by_bytes:
+        return {"bound_ms": floor_ms, "bound_by": "launch", "bytes_bound_ms": by_bytes}
+    return {"bound_ms": by_bytes, "bound_by": "bytes", "bytes_bound_ms": by_bytes}
+
+
 def scatter_bytes(letter: str, rows, cdest) -> int:
     """The bytes the probe's function must move: each input read once, each
     output written once (C reads only the halves it stores)."""
@@ -249,8 +293,9 @@ def measure(inputs: dict) -> dict:
     -> per letter its ms, ns_per_row, bound, the plain version's ms, the
     library call and its ms, ``equal`` (kernel, plain version and library
     call bit for bit) and ``max_abs_err`` (kernel against plain version);
-    with the base_* inputs, the baselines. The first launch of each kernel
-    checks its table; the timed ones do not."""
+    with the base_* inputs, the baselines; the launch floor (launch_floor),
+    which each bound is raised to where the bytes take less. The first launch
+    of each kernel checks its table; the timed ones do not."""
     from splatapult_tpu_torch.ops.composite import gather_rows
     from splatapult_tpu_torch.tools.profile_bin import rounds_ms
     from splatapult_tpu_torch.tools.profile_phases import bound
@@ -270,7 +315,8 @@ def measure(inputs: dict) -> dict:
         err[k] = float((got - want).abs().max())
     del want, got
     calls = {**kernel, **{f"{k}/plain": fn for k, fn in plain.items()},
-             **{f"{k}/library": fn for k, (_, fn) in library.items()}}
+             **{f"{k}/library": fn for k, (_, fn) in library.items()},
+             **{f"launch_floor/{k}": fn for k, fn in launch_floor_calls(rows.device).items()}}
     base = {}
     if "base_rows" in inputs:
         b_rows, b_dest = inputs["base_rows"], inputs["base_dest"]
@@ -288,16 +334,18 @@ def measure(inputs: dict) -> dict:
                             + b_dest.numel() * 4),
                 "sort": ("sort 1 key + 8 operands [4M]", "torch.sort + gather_rows",
                          2 * (b_rows.numel() + b_dest.numel()) * 4)}
-    ms = rounds_ms(calls, ITERS)
+    ms = rounds_ms(calls, ITERS, rotate=True)
     n = rows.shape[0]
+    floor = launch_floor(ms)
     result = {"rows": n, "blocks": dest.shape[0], "block_rows": dest.shape[1],
-              "width": rows.shape[1], "chunk_rows": CH, "iters": ITERS, "probes": {}}
+              "width": rows.shape[1], "chunk_rows": CH, "iters": ITERS, **floor, "probes": {}}
     for k, (name, count) in PROBES.items():
         nbytes = scatter_bytes(k, rows, cdest)
         result["probes"][k] = {
             "name": name, "kernel": count, "replaces": REPLACES[k], "equal": equal[k],
             "max_abs_err": err[k], "ms": ms[k], "ns_per_row": ms[k] * 1e6 / n,
-            "bytes": nbytes, **bound(nbytes, 0), "plain_ms": ms[f"{k}/plain"],
+            "bytes": nbytes, **bound_with_floor(nbytes, floor["launch_floor_ms"]),
+            "plain_ms": ms[f"{k}/plain"],
             "library": library[k][0], "library_ms": ms[f"{k}/library"]}
     if base:
         nb_rows = inputs["base_rows"].shape[0]

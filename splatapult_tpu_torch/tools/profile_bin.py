@@ -61,9 +61,12 @@ def decomposition(whole: str, whole_ms: float, parts_ms: dict) -> dict:
             "gap_share": (whole_ms - total) / whole_ms if whole_ms > 0 else 0.0}
 
 
-def rounds_ms(calls: dict, iters: int) -> dict:
+def rounds_ms(calls: dict, iters: int, rotate: bool = False) -> dict:
     """Each call timed alone by CUDA events, the median of ``iters`` after one
-    warm-up, the calls taking turns round by round -> name -> ms.
+    warm-up, the calls taking turns round by round -> name -> ms. With
+    ``rotate`` the order starts one call later each round, so no call always
+    follows the same one (whose arrays it may find in L2 or not); without,
+    each round keeps the order of ``calls``, as a pipeline's stages run.
 
     Before each timed call a spin kernel (torch.cuda._sleep) holds the stream
     for twice the host's time to issue the call, plus 1 ms: the events then
@@ -90,8 +93,11 @@ def rounds_ms(calls: dict, iters: int) -> dict:
     torch.cuda.synchronize()
     cycles_per_ms = 10_000_000 / a.elapsed_time(b)
     times = {k: [] for k in calls}
-    for _ in range(iters):
-        for k, fn in calls.items():
+    names = list(calls)
+    for i in range(iters):
+        shift = i % len(names) if rotate else 0
+        for k in names[shift:] + names[:shift]:
+            fn = calls[k]
             a, b = events()
             torch.cuda._sleep(int(cycles_per_ms * (2 * issue_ms[k] + 1.0)))
             a.record()

@@ -17,9 +17,12 @@ the JAX tool's own numpy ``want`` (probe_scatter.py:88-90, :129-133,
 
 Also: the wrappers refuse a table that is not a permutation of its block and
 an index out of range; the library calls the tools time as yardsticks give
-the same arrays; each function's bytes; the tools' flags, defaults and
-inputs are the JAX tools' shapes and draws; and both tools exit 1 on a
-machine without a CUDA device. The JAX programs are jitted once per module.
+the same arrays; each function's bytes; G1's route choice from the shape and
+the refusal of a route or a G2 table the shape cannot take; the wrappers on
+CPU tensors at odd shapes (the JAX kernels at two of them too); the bound
+raised to the launch floor; the tools' flags, defaults and inputs
+are the JAX tools' shapes and draws; and both tools exit 1 on a machine
+without a CUDA device. The JAX programs are jitted once per module.
 """
 
 import numpy as np
@@ -118,6 +121,17 @@ def _tool_wants(rows, perm, cperm):
     return {"A": want_a, "B": want_b, "C": want_c}
 
 
+# the odd shapes chip_smoke.py holds G1's every route and G2 at on the card:
+# (axis, x's shape, idx's shape); G1 idx [R, M], G2 idx [M, L]
+ODD_GATHERS = {"G1 [3, 37] by [3, 53]": (1, (3, 37), (3, 53)),
+               "G1 [3, 36] by [3, 52]": (1, (3, 36), (3, 52)),
+               "G1 [5, 2000] by [5, 9000]": (1, (5, 2000), (5, 9000)),
+               "G2 [5, 33] by [7, 33]": (0, (5, 33), (7, 33)),
+               "G2 [5, 36] by [7, 36]": (0, (5, 36), (7, 36)),
+               "G2 [5, 33] by [300, 33]": (0, (5, 33), (300, 33))}
+ODD_JAX = ("G1 [3, 37] by [3, 53]", "G2 [5, 33] by [7, 33]")
+
+
 @pytest.fixture(scope="module")
 def ref():
     rng = np.random.default_rng(SEED)
@@ -132,8 +146,15 @@ def ref():
                                                                          g["lane_idx"]))
     jax_out["sub"] = np.asarray(_jax_gather_probe(0, g["sub_x"].shape)(g["sub_x"],
                                                                        g["sub_idx"]))
+    odd = {}
+    for case, (axis, x_shape, idx_shape) in ODD_GATHERS.items():
+        x = rng.integers(-2 ** 31, 2 ** 31 - 1, x_shape, dtype=np.int64).astype(np.int32)
+        idx = rng.integers(0, x_shape[axis], idx_shape).astype(np.int32)
+        odd[case] = (axis, x, idx)
+        if case in ODD_JAX:
+            jax_out[case] = np.asarray(_jax_gather_probe(axis, idx_shape)(x, idx))
     return {"rows": rows, "perm": perm, "cperm": cperm, "tables": tables, "gather": g,
-            "jax": jax_out, "want": _tool_wants(rows, perm, cperm)}
+            "odd": odd, "jax": jax_out, "want": _tool_wants(rows, perm, cperm)}
 
 
 SCATTER = {"A": (PS.scatter_rows, PS.scatter_rows_plain),
@@ -167,6 +188,79 @@ def test_gather_plain_matches_the_jax_probe(ref, probe):
     assert np.array_equal(ref["jax"][probe], want)
     assert np.array_equal(got, want)
     assert np.array_equal(wrapper(torch.from_numpy(x), torch.from_numpy(idx)).numpy(), want)
+
+
+@pytest.mark.parametrize("case", list(ODD_GATHERS))
+def test_gather_at_odd_shapes(ref, case):
+    """The wrappers on CPU tensors (the plain version) give np.take_along_axis
+    at idx shapes unlike x's and widths that are not multiples of 4 or 32;
+    the JAX kernels agree at two of these shapes."""
+    axis, x, idx = ref["odd"][case]
+    want = np.take_along_axis(x, idx, axis=axis)
+    if case in ODD_JAX:
+        assert np.array_equal(ref["jax"][case], want)
+    wrapper = PG.gather_lane if axis == 1 else PG.gather_sub
+    assert np.array_equal(wrapper(torch.from_numpy(x), torch.from_numpy(idx)).numpy(), want)
+
+
+_AT = PG.LANE_DIRECT_MAX_BYTES // (4 * PG.L)  # G1's rows of 640 at its threshold
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((PG.R, PG.L), "direct"),                          # the JAX tool's table
+    ((65536, PG.L), "staged"),                         # where bytes dominate
+    ((_AT, PG.L), "direct"),                           # x at the threshold
+    ((_AT + 1, PG.L), "staged"),
+    ((4096, PG.LANE_STAGE_MAX_COLS), "staged"),        # the widest row it stages
+    ((4096, PG.LANE_STAGE_MAX_COLS + 1), "direct"),
+])
+def test_gather_lane_route_choice(shape, want):
+    """G1's route from x's shape: direct up to LANE_DIRECT_MAX_BYTES and for
+    rows too wide to stage, staged above; each route it can take is
+    returned as asked."""
+    assert PG.pick_route(*shape) == want
+    routes = PG.lane_routes(torch.empty(shape, device="meta"))
+    assert routes[0] == want and "direct" in routes
+    for route in routes:
+        assert PG.pick_route(*shape, route=route) == route
+
+
+def test_gather_refuses_a_route_its_shape_cannot_take():
+    """G1's staged route stages a row (at most 58112 columns), G2 a
+    32-column strip (at most 1816 rows), in 227 KB of shared memory; G1's
+    direct route takes any shape. A route outside LANE_ROUTES is refused."""
+    assert (PG.LANE_STAGE_MAX_COLS, PG.SUB_MAX_ROWS) == (232448 // 4, 232448 // 128)
+    with pytest.raises(ValueError, match="at most 58112 columns"):
+        PG.pick_route(2, 58113, route="staged")
+    with pytest.raises(ValueError, match="none of"):
+        PG.pick_route(8, 640, route="tiled")
+    assert PG.lane_routes(torch.empty(8, 58113, device="meta")) == ("direct",)
+    x = torch.zeros((2, PG.LANE_STAGE_MAX_COLS + 1), dtype=torch.int32)
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 58112 columns"):
+        PG.gather_lane(x, idx, route="staged")
+    assert torch.equal(PG.gather_lane(x, idx, route="direct"), idx)
+    x = torch.zeros((PG.SUB_MAX_ROWS + 1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 1816 rows"):
+        PG.gather_sub(x, idx)
+    assert torch.equal(PG.gather_sub(x[:-1], idx), idx)
+
+
+def test_bound_is_raised_to_the_launch_floor():
+    """bound_ms is the larger of the bytes' time at 3.35 TB/s and the launch
+    floor (bound_by "bytes" or "launch"); the floor is the lesser of its two
+    calls' times, a 4-byte copy and an empty kernel."""
+    small, large = PS.bound_with_floor(61440, 0.005), PS.bound_with_floor(503316480, 0.005)
+    assert small == {"bound_ms": 0.005, "bound_by": "launch",
+                     "bytes_bound_ms": pytest.approx(61440 / 3.35e12 * 1e3)}
+    assert large["bound_by"] == "bytes" and large["bound_ms"] == large["bytes_bound_ms"]
+    assert abs(large["bound_ms"] - 0.15024) < 1e-4
+    calls = PS.launch_floor_calls("cpu")
+    assert set(calls) == {"copy_", "empty_kernel"}
+    assert calls["copy_"]().numel() == 1 and calls["copy_"]().dtype == torch.int32
+    ms = {"A": 0.006, "launch_floor/copy_": 0.0052, "launch_floor/empty_kernel": 0.0031}
+    assert PS.launch_floor(ms) == {"launch_floor_ms": 0.0031, "launch_floor_calls_ms": {
+        "copy_": 0.0052, "empty_kernel": 0.0031}}
 
 
 def test_library_calls_give_the_same_arrays(ref):
